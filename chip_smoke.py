@@ -1,0 +1,265 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch port on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Phases, each printing its own line; any failure exits non-zero:
+
+1. the card (``nvidia-smi`` name and power limit), torch and CUDA versions;
+2. build the segment kernel (``csrc/mega.cu``) from this checkout;
+3. hold the kernel against its plain PyTorch version on the exact segment
+   inputs the main path produces: a 16,384-ray probe of the bunny stand-in
+   (every 16th ray of the tile order, so it spans the whole image and the
+   mesh; its bounce-0 segment, which must hit triangles, and its fused
+   tail) and of a scene with cylinders and box/cylinder lights; then the
+   analytic scene's render against the committed golden image;
+4. the slice: ``render_block_stats`` over the image of the bunny stand-in
+   (a procedural mesh of 69,451 triangles, as many as bunny.ply, in the
+   bunny configuration) at 512x512, 32 spp, 8 bounces, DOF off, one launch
+   per sample, with the segment tables built once as ``render_image`` does,
+   counting rays after the loop as bench.py does, and checking that every
+   segment went through the kernel.
+
+The line before the last is the kernels' JSON record; the last line is
+``{"ok": true, "device": {...}}``. Without CUDA it exits 1 and prints no
+result.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+sys.path[:0] = [HERE, os.path.join(HERE, "tests")]
+W = H = 512
+SPP = 32
+BOUNCES = 8
+PROBE = 16384
+N_TRIS = 69451
+RECORD_BUDGET = 0.002     # share of live (id, vis) records allowed to differ
+
+
+def log(msg):
+    print(msg, flush=True)
+
+
+def fail(msg):
+    print(f"FAIL: {msg}", file=sys.stderr, flush=True)
+    sys.exit(1)
+
+
+def bunny_stand_in(device):
+    """The bunny configuration around a procedural mesh of as many
+    triangles as bunny.ply, scaled to bunny.ply's extent (bunny_builder
+    then scales by 8)."""
+    from offline_raytracer_tpu_torch.models.scenes import bunny_builder
+    from torch_port_cases import procedural_mesh
+
+    v, f = procedural_mesh(N_TRIS)
+    return bunny_builder(v * 0.075, f).build(W, H, device=device)
+
+
+def capture_segments(scene, cfg, pixel_ids):
+    """Run one sample of the main path on the card and keep every
+    segment's inputs: [(state, u, ls, tables, seg)]."""
+    import torch
+    from offline_raytracer_tpu_torch.ops import mega
+    from offline_raytracer_tpu_torch.ops.camera import generate_rays
+    from offline_raytracer_tpu_torch.utils import rng
+
+    seen = []
+    original = mega.mega_segment
+
+    def recording(state, u, ls, tables, seg):
+        seen.append((state.clone(), u.clone(), ls.clone(), tables, seg))
+        return original(state, u, ls, tables, seg)
+
+    keys = rng.pixel_sample_keys(rng.render_key(cfg.seed, pixel_ids.device),
+                                 pixel_ids, torch.zeros_like(pixel_ids))
+    ro, rd = generate_rays(scene.camera, cfg, pixel_ids, keys)
+    mega.mega_segment = recording
+    try:
+        mega.render_paths_mega(scene, cfg, ro, rd, keys)
+    finally:
+        mega.mega_segment = original
+    return seen
+
+
+def time_ms(fn, reps):
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def compare_segment(name, inputs):
+    """Kernel vs plain version on one segment's inputs; returns the
+    measurements. Raises on a disagreement beyond the mega test's bounds."""
+    import numpy as np
+    import torch
+    from offline_raytracer_tpu_torch.ops import mega
+    from torch_port_cases import assert_close
+
+    state, u, ls, tables, seg = inputs
+    nf = seg.n_fused
+    k_state, k_rad = mega.mega_segment_cuda(state, u, ls, tables, seg)
+    p_state, p_rad = mega.mega_segment_plain(state, u, ls, tables, seg)
+    torch.cuda.synchronize()
+    k_rad, p_rad = k_rad.cpu().numpy(), p_rad.cpu().numpy()
+    alive_in = state[10].cpu().numpy() > 0.5
+    k_alive = k_rad[3 + 2 * nf:] > 0.5
+    live = np.concatenate([alive_in[None], k_alive[:-1]], 0)
+    differ = ((k_rad[3:3 + nf] != p_rad[3:3 + nf])
+              | (k_rad[3 + nf:3 + 2 * nf] != p_rad[3 + nf:3 + 2 * nf])) & live
+    n_live = int(live.sum())
+    n_differ = int(differ.sum())
+    if n_differ > RECORD_BUDGET * max(n_live, 1):
+        raise AssertionError(
+            f"{name}: {n_differ} of {n_live} live records differ")
+    k_count = k_rad[3 + 2 * nf:].sum(1)
+    p_count = p_rad[3 + 2 * nf:].sum(1)
+    if np.abs(k_count - p_count).max() > n_differ:
+        raise AssertionError(
+            f"{name}: alive counts {k_count} vs {p_count}")
+    tri_hits = int(((k_rad[3:3 + nf] >= tables.meta.tri_base) & live).sum())
+    ref, got = p_rad[0:3].T, k_rad[0:3].T
+    assert_close(ref, got)
+    err = float(np.abs(ref - got).max())
+    k_ms = time_ms(lambda: mega.mega_segment_cuda(state, u, ls, tables, seg),
+                   10)
+    p_ms = time_ms(lambda: mega.mega_segment_plain(state, u, ls, tables, seg),
+                   2)
+    log(f"  {name}: Rp={state.shape[1]} nf={nf} live={n_live} "
+        f"triangle_hits={tri_hits} records_differ={n_differ} "
+        f"alive kernel={k_count.tolist()} plain={p_count.tolist()} "
+        f"max_abs_err={err:.3e} kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f}")
+    return {"err": err, "ms": k_ms, "plain_ms": p_ms, "tri_hits": tri_hits}
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    import numpy as np
+    from offline_raytracer_tpu_torch import RenderConfig
+    from offline_raytracer_tpu_torch.models.scenes import analytic
+    from offline_raytracer_tpu_torch.ops import _kernels, mega
+    from offline_raytracer_tpu_torch.render import (
+        render_block_stats, render_image, tile_pixel_ids)
+    from offline_raytracer_tpu_torch.scene.build import SceneBuilder
+    from torch_port_cases import assert_close, shaped_recipe
+
+    dev = torch.device("cuda", 0)
+    kind = torch.cuda.get_device_name(0)
+
+    # ---- phase 1: the card
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
+    if smi.returncode != 0:
+        fail(f"nvidia-smi: {smi.stderr.strip()}")
+    card = smi.stdout.strip().splitlines()[0]
+    log(card)
+    log(f"phase 1 card: {kind}; torch {torch.__version__} "
+        f"cuda {torch.version.cuda}; python {sys.version.split()[0]}")
+
+    # ---- phase 2: build the kernel from this checkout
+    info = _kernels.build("mega")
+    regs = [ln.strip() for ln in info["log"].splitlines()
+            if "registers" in ln or "spill" in ln]
+    log(f"phase 2 build: mega.cu -> {os.path.relpath(info['path'], HERE)} "
+        f"in {info['seconds']:.2f} s (cached={info['cached']}); "
+        + " | ".join(regs))
+
+    # ---- phase 3: kernel vs plain version on the main path's inputs
+    t0 = time.time()
+    scene = bunny_stand_in(dev)
+    log(f"phase 3 scene: bunny stand-in {scene.triangles.mat.shape[0]} "
+        f"triangles, {scene.tri_bvh.m_occ} leaves, built in "
+        f"{time.time() - t0:.2f} s")
+    cfg = RenderConfig(width=W, height=H, spp=SPP, max_bounces=BOUNCES,
+                       enable_dof=False, ray_batch=W * H)
+    order = torch.from_numpy(tile_pixel_ids(W, H)).to(dev)
+    segs = capture_segments(scene, cfg, order[::order.shape[0] // PROBE])
+    results = [compare_segment("bunny bounce-0 segment", segs[0]),
+               compare_segment("bunny fused tail", segs[-1])]
+    if results[0]["tri_hits"] == 0:
+        fail("the bunny probe's bounce-0 segment hit no triangle")
+    shaped = shaped_recipe(SceneBuilder).build(64, 64, device=dev)
+    scfg = RenderConfig(width=64, height=64, spp=1, max_bounces=4,
+                        enable_dof=False)
+    for i, s in enumerate(capture_segments(
+            shaped, scfg, torch.arange(4096, device=dev))):
+        compare_segment(f"shaped segment {i}", s)
+    golden = np.load(os.path.join(HERE, "tests", "golden",
+                                  "analytic_24x24_16spp.npy"))
+    img = render_image(analytic(24, 24, device=dev), RenderConfig(
+        width=24, height=24, spp=16, seed=7, max_bounces=5, enable_dof=False))
+    assert_close(golden.reshape(-1, 3), img.reshape(-1, 3))
+    log(f"  analytic 24x24 16 spp vs tests/golden: max abs diff "
+        f"{np.abs(golden - img).max():.3e}")
+
+    # ---- phase 4: the slice through the kernel
+    per_sample = len(mega.segment_plan(cfg)[0])
+    nee = cfg.enable_nee and scene.n_lights > 0
+    torch.cuda.synchronize()
+    mega.KERNEL_LAUNCHES = 0
+    t0 = time.time()
+    tables = mega.prepare_tables(scene, cfg)
+    acc = torch.zeros((W * H, 3), dtype=torch.float32, device=dev)
+    launches_alive = []
+    for s in range(SPP):         # ray_batch = W*H: one launch per sample
+        out, alive = render_block_stats(scene, cfg, order, s, 1, tables)
+        acc += out
+        launches_alive.append((W * H, alive))
+    rays = 0.0
+    for n_paths, alive in launches_alive:
+        # 1 camera ray per path + 1 per surviving bounce; NEE adds 1 shadow
+        # ray per shading point (camera + bounces - 1)
+        a = alive.cpu().numpy().astype(np.float64)   # exact past 2**24
+        rays += n_paths + a.sum()
+        if nee:
+            rays += n_paths + a[:-1].sum()
+    img = (acc / SPP).cpu().numpy()
+    dt = time.time() - t0
+    launches = mega.KERNEL_LAUNCHES
+    if launches != per_sample * SPP:
+        fail(f"kernel launches {launches}, want {per_sample * SPP}")
+    if not np.isfinite(img).all() or not img.mean() > 0:
+        fail(f"slice image broken: mean {img.mean()}")
+    mrays = rays / dt / 1e6
+    log(f"phase 4 slice: bunny stand-in {W}x{H} {SPP} spp {BOUNCES} bounces "
+        f"in {dt:.3f} s, {rays:.0f} rays, {mrays:.3f} Mrays/s, "
+        f"{launches} kernel launches, image mean {img.mean():.5f} "
+        f"[{card}]")
+
+    record = {"kernels": [{
+        "name": "mega_segment", "route": "cuda",
+        "source": "offline_raytracer_tpu_torch/csrc/mega.cu",
+        "replaces": "offline_raytracer_tpu/ops/mega.py:418",
+        "launches": launches,
+        "max_abs_err": max(r["err"] for r in results),
+        "ms": results[0]["ms"], "plain_ms": results[0]["plain_ms"]}]}
+    print(json.dumps(record))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind,
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,80 @@
+"""Render configuration (counterpart of ``offline_raytracer_tpu/config.py``).
+
+Same fields, defaults and validation as the JAX package's RenderConfig, so a
+configuration means the same render in both packages. Knobs that only the
+JAX package's TPU routes read (``use_pallas``, ``mega_trip_leaves``,
+``replay_tiers``, ``grad_mode``, ``accum_dtype``) are kept for parity and
+ignored here; ``traversal`` other than "auto"/"mega" is refused by
+``render.py`` until the other traversal routes are ported.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+
+@dataclasses.dataclass(frozen=True)
+class RenderConfig:
+    # image
+    width: int = 1280
+    height: int = 720
+
+    # sampling
+    spp: int = 2048
+    seed: int = 0
+    max_bounces: int = 12
+    russian_roulette: float = 0.8  # survival probability per bounce
+    rr_start_bounce: int = 0       # bounce index at which RR starts
+
+    # camera / depth of field
+    aperture_radius: float = 0.1
+    focal_anchor_z: float = 0.2    # focal_length = |cam_p - (0,0,anchor_z)|
+    enable_dof: bool = True
+    aperture_disk: bool = False    # False = aperture rim (ring bokeh)
+    pixel_jitter: bool = True
+
+    # shading
+    default_roughness: float = 0.01
+    roughness_from_material: bool = False
+    enable_nee: bool = True
+    enable_mis: bool = True
+    # reproduce the reference renderer's uncompensated final Russian-
+    # roulette gate on light-terminated paths (see the JAX config)
+    reference_rr_quirk: bool = False
+    hit_eps: float = 1e-4
+    t_min: float = 1e-6
+
+    # acceleration
+    use_bvh: bool = True
+    bvh_leaf_size: int = 128
+    max_stack_depth: int = 64
+    sort_rays: bool = True
+
+    # execution
+    ray_batch: int = 1 << 17       # rays per launch (pixels*spp chunked)
+    mega_trip_leaves: int = 4      # TPU walk knob; unused by the port
+    mega_sort_after: int = 3       # coherence-compact the wavefront after
+    #                                bounces 0..N-1, then fuse the tail
+    replay_tiers: tuple = ()
+    use_pallas: bool = True
+    traversal: str = "auto"
+    grad_mode: str = "kernel-value"
+    accum_dtype: str = "float32"
+
+    PERF_ONLY = ("ray_batch", "use_pallas", "traversal", "sort_rays",
+                 "max_stack_depth", "mega_trip_leaves", "mega_sort_after",
+                 "replay_tiers", "grad_mode")
+
+    def __post_init__(self):
+        if self.traversal not in ("auto", "mega", "cull", "packet", "jnp"):
+            raise ValueError(
+                f"traversal must be one of auto|mega|cull|packet|jnp, "
+                f"got {self.traversal!r}")
+        if self.grad_mode not in ("kernel-value", "replay-value"):
+            raise ValueError(
+                f"grad_mode must be kernel-value|replay-value, "
+                f"got {self.grad_mode!r}")
+
+    def replace(self, **kw) -> "RenderConfig":
+        return dataclasses.replace(self, **kw)
+

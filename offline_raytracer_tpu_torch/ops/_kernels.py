@@ -1,0 +1,88 @@
+"""Build and load the port's CUDA kernels (``csrc/*.cu``) at first use.
+
+Each source is compiled by ``nvcc`` for Hopper (``sm_90a``) into a shared
+library with a plain C entry point, cached under ``build/kernels/`` at the
+repository root keyed on a hash of the source and the flags, and loaded
+with ctypes. No fast-math flags: the kernels rely on IEEE division, on
+``inf`` from ``1/0`` in slab tests and on exact ``sqrtf``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+
+_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SRC_DIR = os.path.join(_PKG_DIR, "csrc")
+BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "kernels")
+
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# argument types of each kernel library's C entry point
+SIGNATURES = {
+    "mega": ("mega_segment",
+             [_P] * 9 + [_I] * 14 + [_F] * 3 + [_P]),
+}
+
+_loaded: dict = {}
+
+
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    if CUDA_HOME and os.path.exists(os.path.join(CUDA_HOME, "bin", "nvcc")):
+        return os.path.join(CUDA_HOME, "bin", "nvcc")
+    raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA "
+                       "toolkit (set CUDA_HOME or put nvcc on PATH)")
+
+
+def build(name: str) -> dict:
+    """Compile ``csrc/<name>.cu`` unless its library is cached.
+
+    Returns {"path", "seconds", "log", "cached"}; raises on a failed build.
+    """
+    src = os.path.join(SRC_DIR, f"{name}.cu")
+    with open(src, "rb") as f:
+        digest = hashlib.sha256(
+            f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    out = os.path.join(BUILD_DIR, f"{name}_{digest}.so")
+    if os.path.exists(out):
+        return {"path": out, "seconds": 0.0, "log": "", "cached": True}
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    t0 = time.time()
+    try:
+        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, src],
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed for {src}:\n{proc.stdout}\n{proc.stderr}")
+        os.replace(tmp, out)
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+    return {"path": out, "seconds": time.time() - t0,
+            "log": proc.stdout + proc.stderr, "cached": False}
+
+
+def load(name: str):
+    """The ctypes entry point of kernel library ``name`` (built if needed)."""
+    fn = _loaded.get(name)
+    if fn is None:
+        entry, argtypes = SIGNATURES[name]
+        lib = ctypes.CDLL(build(name)["path"])
+        fn = getattr(lib, entry)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _loaded[name] = fn
+    return fn

@@ -1,0 +1,104 @@
+"""Scene tables (counterpart of ``offline_raytracer_tpu/scene/types.py``).
+
+Structure-of-arrays dataclasses of tensors, one per primitive kind, with the
+same field names, shapes and dtypes as the JAX package's pytrees. Each has
+``.to(device)``; nothing here holds a device of its own.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+
+def _to(x, device):
+    if isinstance(x, torch.Tensor):
+        return x.to(device)
+    if isinstance(x, TensorTable):
+        return x.to(device)
+    return x
+
+
+@dataclasses.dataclass(frozen=True)
+class TensorTable:
+    """Frozen dataclass of tensors (and nested tables, ints, None)."""
+
+    def to(self, device):
+        return dataclasses.replace(self, **{
+            f.name: _to(getattr(self, f.name), device)
+            for f in dataclasses.fields(self)})
+
+
+@dataclasses.dataclass(frozen=True)
+class Materials(TensorTable):
+    diffuse: torch.Tensor       # (M, 3) Kd
+    specular: torch.Tensor      # (M, 3) Ks
+    spec_exp: torch.Tensor      # (M,)
+    transmission: torch.Tensor  # (M, 3) Kt
+    ior: torch.Tensor           # (M,)
+    emit: torch.Tensor          # (M, 3)
+    is_light: torch.Tensor      # (M,) bool
+
+
+@dataclasses.dataclass(frozen=True)
+class Spheres(TensorTable):
+    center: torch.Tensor  # (N, 3)
+    radius: torch.Tensor  # (N,)
+    mat: torch.Tensor     # (N,) int32
+
+
+@dataclasses.dataclass(frozen=True)
+class Boxes(TensorTable):
+    bmin: torch.Tensor  # (N, 3)
+    bmax: torch.Tensor  # (N, 3)
+    mat: torch.Tensor   # (N,) int32
+
+
+@dataclasses.dataclass(frozen=True)
+class Cylinders(TensorTable):
+    base: torch.Tensor    # (N, 3)
+    axis: torch.Tensor    # (N, 3) non-unit: |axis| = height
+    radius: torch.Tensor  # (N,)
+    rot: torch.Tensor     # (N, 3, 3) world->local rotation (axis -> +Z)
+    mat: torch.Tensor     # (N,) int32
+
+
+@dataclasses.dataclass(frozen=True)
+class Triangles(TensorTable):
+    v0: torch.Tensor   # (N, 3)
+    v1: torch.Tensor   # (N, 3)
+    v2: torch.Tensor   # (N, 3)
+    mat: torch.Tensor  # (N,) int32
+
+
+@dataclasses.dataclass(frozen=True)
+class Camera(TensorTable):
+    """Pinhole/thin-lens camera; axes pre-scaled as in the JAX package."""
+
+    p: torch.Tensor       # (3,)
+    x_axis: torch.Tensor  # (3,)
+    y_axis: torch.Tensor  # (3,)
+    z_axis: torch.Tensor  # (3,)
+
+
+@dataclasses.dataclass(frozen=True)
+class Scene(TensorTable):
+    materials: Materials
+    spheres: Spheres
+    boxes: Boxes
+    cylinders: Cylinders
+    triangles: Triangles
+    lights: object            # ops.lights.AreaLights
+    camera: Camera
+    ambient: torch.Tensor       # (3,)
+    mat_to_light: torch.Tensor  # (M,) int32: light index or -1
+    tri_bvh: object = None      # ops.bvh.TriBVH or None
+
+    @property
+    def n_lights(self) -> int:
+        return self.lights.kind.shape[0]
+
+    @property
+    def device(self) -> torch.device:
+        return self.materials.diffuse.device

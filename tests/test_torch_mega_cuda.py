@@ -1,0 +1,54 @@
+"""The CUDA segment kernel vs its plain version on the card.
+
+Marked ``cuda``: it needs an NVIDIA GPU and nvcc, and skips without them.
+It imports no jax, so it runs on a card machine without jax:
+``python -m pytest -m cuda --noconftest tests/test_torch_mega_cuda.py``.
+"""
+
+import pytest
+import torch
+
+from offline_raytracer_tpu_torch import RenderConfig
+from offline_raytracer_tpu_torch.ops import mega
+from offline_raytracer_tpu_torch.ops.camera import generate_rays
+from offline_raytracer_tpu_torch.scene.build import SceneBuilder
+from offline_raytracer_tpu_torch.utils import rng
+from torch_port_cases import assert_close, mesh_recipe, shaped_recipe
+
+
+@pytest.fixture
+def device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (runs on the card)")
+    return torch.device("cuda", 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("recipe", [mesh_recipe, shaped_recipe])
+@pytest.mark.parametrize("nee", [True, False])
+def test_kernel_matches_plain(device, recipe, nee):
+    scene = recipe(SceneBuilder).build(64, 64, device=device)
+    cfg = RenderConfig(width=64, height=64, spp=1, max_bounces=6,
+                       enable_dof=False, enable_nee=nee, mega_sort_after=2)
+    ids = torch.arange(4096, device=device, dtype=torch.int32)
+    keys = rng.pixel_sample_keys(rng.render_key(0, device), ids,
+                                 torch.zeros_like(ids))
+    ro, rd = generate_rays(scene.camera, cfg, ids, keys)
+    tables = mega.prepare_tables(scene, cfg)
+    state = torch.cat([ro.T, rd.T, torch.ones((3, 4096), device=device),
+                       torch.full((1, 4096), -1.0, device=device),
+                       torch.ones((1, 4096), device=device)]).contiguous()
+    for b, nf in mega.segment_plan(cfg)[0]:
+        u = torch.cat([rng.tagged_uniform_planes(keys, b + i, 8)
+                       for i in range(nf)]).contiguous()
+        ls = torch.rand((10 * nf, 4096), device=device)
+        ls[9::10] += 0.05                       # positive area pdfs
+        seg = mega.Segment.of(cfg, tables.meta, b, nf)
+        before = mega.KERNEL_LAUNCHES
+        k_state, k_rad = mega.mega_segment(state, u, ls, tables, seg)
+        assert mega.KERNEL_LAUNCHES == before + 1
+        p_state, p_rad = mega.mega_segment_plain(state, u, ls, tables, seg)
+        k_rad, p_rad = k_rad.cpu().numpy(), p_rad.cpu().numpy()
+        assert (k_rad[3:] != p_rad[3:]).mean() < 0.002
+        assert_close(p_rad[0:3].T, k_rad[0:3].T)
+        state = p_state

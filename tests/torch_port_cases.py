@@ -1,0 +1,199 @@
+"""Shared cases for the PyTorch port's tests (not collected by pytest).
+
+Each scene recipe takes a SceneBuilder class and makes the same calls on
+it, so the JAX package's builder and the port's builder describe one scene.
+The comparisons hand data across as numpy arrays. The module imports jax
+only inside the functions that run the JAX package, so ``chip_smoke.py``
+and the card's tests import it on a machine without jax.
+"""
+
+import numpy as np
+
+
+def assert_close(ref, got, atol=2e-4):
+    """tests/test_mega.py::_assert_close, without importing jax."""
+    d = np.abs(ref - got)
+    rel = d / np.maximum(np.abs(ref), 1e-2)
+    assert d.max() < 0.3, f"max abs diff {d.max()}"
+    assert (rel > 1e-3).mean() < 0.002, f"rel > 1e-3 share {(rel > 1e-3).mean()}"
+    assert abs(ref.mean() - got.mean()) < atol, (
+        f"mean diff {abs(ref.mean() - got.mean())}")
+    signed = (got - ref).reshape(-1, 3).mean(0)
+    assert np.abs(signed).max() < 1e-4, f"signed channel bias {signed}"
+
+
+def procedural_mesh(n_tris: int, seed: int = 0):
+    """A bumpy closed sphere cut to exactly ``n_tris`` triangles:
+    (vertices (V, 3) float32, faces (F, 3) int32), unit-ish radius."""
+    nv = max(4, int(np.sqrt(n_tris / 4.0)) + 2)
+    nu = max(3, -(-n_tris // (2 * (nv - 1))))
+    rs = np.random.RandomState(seed)
+    th = np.linspace(0.0, np.pi, nv + 1)[1:-1]
+    ph = np.linspace(0.0, 2.0 * np.pi, nu, endpoint=False)
+    r = 1.0 + 0.08 * rs.standard_normal((th.size, nu))
+    ring = np.stack([np.outer(np.sin(th), np.cos(ph)) * r,
+                     np.outer(np.sin(th), np.sin(ph)) * r,
+                     np.outer(np.cos(th), np.ones(nu)) * r], -1).reshape(-1, 3)
+    v = np.concatenate([ring, [[0, 0, 1.0]], [[0, 0, -1.0]]]).astype(
+        np.float32)
+    top, bot = ring.shape[0], ring.shape[0] + 1
+    f = []
+    for j in range(nu):
+        f.append([top, j, (j + 1) % nu])
+    for i in range(th.size - 1):
+        for j in range(nu):
+            a, b = i * nu + j, i * nu + (j + 1) % nu
+            c, d = a + nu, b + nu
+            f += [[a, c, b], [b, c, d]]
+    last = (th.size - 1) * nu
+    for j in range(nu):
+        f.append([bot, last + (j + 1) % nu, last + j])
+    f = np.asarray(f, np.int32)
+    if f.shape[0] < n_tris:
+        raise ValueError("mesh generator made too few triangles")
+    return v, f[:n_tris]
+
+
+def analytic_recipe(B):
+    """Sphere + floor box + one sphere light (tests/conftest.py)."""
+    b = B()
+    b.add_material(diffuse=(0.7, 0.3, 0.2))
+    b.add_sphere((0.0, 0.0, 1.0), 0.8)
+    b.add_material(diffuse=(0.5, 0.5, 0.5))
+    b.add_box_minmax((-20, -20, -0.2), (20, 20, 0.0))
+    b.add_light_material((8.0, 8.0, 8.0))
+    b.add_sphere((2.0, -2.0, 4.0), 0.5)
+    half = np.pi / 4
+    b.set_camera((4.0, 0.0, 1.5), 0.4,
+                 np.array([0.0, np.sin(half), 0.0, np.cos(half)], np.float32))
+    return b
+
+
+def shaped_recipe(B, sphere_light=False):
+    """Cylinders, a box light and a cylinder light (tests/test_mega.py
+    _shaped_scene), optionally with a sphere light too."""
+    b = B()
+    b.set_camera((0.0, -3.0, 1.2), 0.5, (0.0, 0.0, 0.0, 1.0))
+    b.add_material(diffuse=(0.6, 0.6, 0.6))
+    b.add_box_minmax((-4, -4, -0.2), (4, 4, 0.0))
+    b.add_material(diffuse=(0.5, 0.3, 0.2), specular=(0.4, 0.4, 0.4),
+                   spec_exp=40)
+    b.add_cylinder((-0.8, 0.0, 0.0), (0.0, 0.0, 1.2), 0.3)
+    b.add_cylinder((0.2, -0.5, 0.4), (1.0, 0.5, 0.0), 0.2)
+    b.add_material(diffuse=(0.2, 0.4, 0.7))
+    b.add_sphere((0.9, 0.6, 0.35), 0.35)
+    b.add_light_material((6.0, 5.0, 4.0))
+    b.add_box_minmax((-0.5, -0.5, 2.4), (0.5, 0.5, 2.6))
+    b.add_light_material((2.0, 3.0, 4.0))
+    b.add_cylinder((2.0, 2.0, 0.0), (0.0, 0.0, 2.0), 0.15)
+    if sphere_light:
+        b.add_light_material((9.0, 9.0, 7.0))
+        b.add_sphere((-1.5, 1.0, 2.0), 0.3)
+    return b
+
+
+def mesh_recipe(B, n_tris=576):
+    """The bunny configuration (materials, floor, light, camera) around a
+    procedural mesh of ``n_tris`` triangles, plus a glass sphere."""
+    v, f = procedural_mesh(n_tris)
+    v = (v - v.mean(0)) * 0.6
+    v[:, 2] -= v[:, 2].min()
+    b = B()
+    b.add_material(diffuse=(0.6, 0.5, 0.4), specular=(0.3, 0.3, 0.3),
+                   spec_exp=50)
+    b.add_triangles(v, f)
+    b.add_material(diffuse=(0.4, 0.4, 0.45))
+    b.add_box_minmax((-10, -10, -0.2), (10, 10, 0.0))
+    b.add_material(specular=(0.1, 0.1, 0.1), transmission=(0.9, 0.95, 0.9),
+                   ior=1.5)
+    b.add_sphere((-0.2, 0.9, 0.35), 0.3)
+    b.add_light_material((10.0, 10.0, 10.0))
+    b.add_sphere((1.5, -1.5, 3.0), 0.4)
+    half = np.pi / 4
+    b.set_camera((2.5, 0.0, 0.8), 0.4,
+                 np.array([0.0, np.sin(half), 0.0, np.cos(half)], np.float32))
+    return b
+
+
+def jax_scene_arrays(scene) -> dict:
+    """{keystr path: np.ndarray} of a JAX Scene's pytree leaves."""
+    import jax
+
+    leaves, _ = jax.tree_util.tree_flatten_with_path(scene)
+    return {jax.tree_util.keystr(p): np.asarray(x) for p, x in leaves}
+
+
+def port_leaf(scene, path: str):
+    """The port scene's tensor at a keystr path, as numpy."""
+    x = scene
+    for part in path.lstrip(".").split("."):
+        x = getattr(x, part)
+    return x.detach().cpu().numpy()
+
+
+def mega_case(recipe, R, **cfg_kw):
+    """One bounce-loop comparison: the same rays and keys through the JAX
+    megakernel (interpret mode, records), the JAX integrator (alive
+    counts) and the port's render_paths_mega on the CPU (plain version),
+    the port fed the JAX scene through scene_from_arrays."""
+    import jax.numpy as jnp
+    import torch
+
+    from offline_raytracer_tpu.config import RenderConfig as JaxConfig
+    from offline_raytracer_tpu.integrator import trace_paths
+    from offline_raytracer_tpu.ops import mega as jax_mega
+    from offline_raytracer_tpu.ops.camera import generate_rays
+    from offline_raytracer_tpu.render import _trace_builder
+    from offline_raytracer_tpu.scene.build import SceneBuilder
+    from offline_raytracer_tpu.utils import rng as jax_rng
+    from offline_raytracer_tpu_torch.config import RenderConfig
+    from offline_raytracer_tpu_torch.convert import scene_from_arrays
+    from offline_raytracer_tpu_torch.ops import mega
+    from offline_raytracer_tpu_torch.utils import rng
+
+    base = dict(width=64, height=64, spp=1, max_bounces=4, enable_dof=False)
+    base.update(cfg_kw)
+    jcfg = JaxConfig(traversal="jnp", **base)
+    scene = recipe(SceneBuilder).build(64, 64)
+    ids = np.arange(R, dtype=np.int32) % (64 * 64)
+    keys = jax_rng.pixel_sample_keys(
+        jax_rng.render_key(jcfg.seed), jnp.asarray(ids),
+        jnp.zeros((R,), jnp.int32))
+    ro, rd = generate_rays(scene.camera, jcfg, jnp.asarray(ids), keys)
+    rad, hit_ids, vis = jax_mega.render_paths_mega(
+        scene, jcfg, ro, rd, keys, interpret=True, collect_records=True)
+    trace_fn, occl_fn = _trace_builder(scene, jcfg)
+    _, counts = trace_paths(scene, jcfg, trace_fn, ro, rd, keys,
+                            collect_stats=True, occl_fn=occl_fn)
+
+    tscene = scene_from_arrays(jax_scene_arrays(scene))
+    tkeys = rng.pixel_sample_keys(
+        rng.render_key(base.get("seed", 0)), torch.from_numpy(ids),
+        torch.zeros((R,), dtype=torch.int32))
+    out = mega.render_paths_mega(
+        tscene, RenderConfig(**base), torch.from_numpy(np.array(ro)),
+        torch.from_numpy(np.array(rd)), tkeys, collect_records=True)
+    return {
+        "ref": (np.asarray(rad), np.asarray(hit_ids), np.asarray(vis),
+                np.asarray(counts)),
+        "got": tuple(x.numpy() for x in out),
+    }
+
+
+def check_mega(case, budget=0.002):
+    """Records equal on live lanes up to ``budget`` of them (edge ties after
+    the t truncation), alive counts within the mismatches, radiance within
+    tests/test_mega.py's bounds."""
+    from test_mega import _assert_close
+
+    rad, ids, vis, counts = case["ref"]
+    t_rad, t_ids, t_vis, t_alive = case["got"]
+    R = rad.shape[0]
+    assert t_ids.shape == ids.shape and t_ids.dtype == np.int32
+    live = np.concatenate([np.ones((1, R), bool), t_alive[:-1] > 0.5], 0)
+    differ = ((ids != t_ids) | (vis != t_vis)) & live
+    assert differ.sum() <= budget * live.sum(), (
+        f"{differ.sum()} of {live.sum()} live records differ")
+    assert np.abs(t_alive.sum(1) - counts).max() <= differ.sum(), (
+        t_alive.sum(1), counts)
+    _assert_close(rad, t_rad)
