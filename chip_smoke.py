@@ -6,11 +6,12 @@
 Phases, each printing its own line; any failure exits non-zero:
 
 1. the card (``nvidia-smi`` name and power limit), torch and CUDA versions;
-2. build the segment kernel (``csrc/mega.cu``) from this checkout;
-3. hold the kernel against its plain PyTorch version on the exact segment
-   inputs the main path produces: a 16,384-ray probe of the bunny stand-in
-   (every 16th ray of the tile order, so it spans the whole image and the
-   mesh; its bounce-0 segment, which must hit triangles, and its fused
+2. build the three kernels (``csrc/mega.cu``, ``csrc/traverse_cull.cu``,
+   ``csrc/traverse_packet.cu``) from this checkout, one nvcc each, at once;
+3. hold the segment kernel against its plain PyTorch version on the exact
+   segment inputs the main path produces: a 16,384-ray probe of the bunny
+   stand-in (every 16th ray of the tile order, so it spans the whole image
+   and the mesh; its bounce-0 segment, which must hit triangles, and its fused
    tail) and of a scene with cylinders and box/cylinder lights; then the
    analytic scene's render against the committed golden image;
 4. the slice: ``render_block_stats`` over the image of the bunny stand-in
@@ -18,7 +19,21 @@ Phases, each printing its own line; any failure exits non-zero:
    bunny configuration) at 512x512, 32 spp, 8 bounces, DOF off, one launch
    per sample, with the segment tables built once as ``render_image`` does,
    counting rays after the loop as bench.py does, and checking that every
-   segment went through the kernel.
+   segment went through the kernel;
+5. the wavefront route's triangle queries: the inputs of every query of
+   one wavefront sample of the same probe (8 bounces, NEE on) are
+   captured, and the cull-and-sweep kernel (``csrc/traverse_cull.cu``)
+   and the packet walk kernel (``csrc/traverse_packet.cu``) are held
+   against the plain dense sweep on bounce 0's closest-hit query (which
+   must hit triangles), on the last live bounce's and on bounce 0's
+   shadow any-hit query;
+6. the wavefront slice: ``render_block_stats`` over the whole 512x512
+   stand-in image with ``traversal="cull"`` and again with "packet", 4 spp
+   each, every launch counted (one closest-hit and one shadow query per
+   bounce and sample);
+7. the cross-check of ``bench.py:69-85``: a 4,096-pixel probe (every 64th
+   pixel of the tile order) at 2 spp through the segment, cull and packet
+   routes, with that check's bounds.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Without CUDA it exits 1 and prints no
@@ -41,6 +56,9 @@ BOUNCES = 8
 PROBE = 16384
 N_TRIS = 69451
 RECORD_BUDGET = 0.002     # share of live (id, vis) records allowed to differ
+WSPP = 4                  # samples of the wavefront slice, per route
+QUERY_BUDGET = 0.002      # share of live rays whose slot or bit may differ
+KERNELS = ("mega", "traverse_cull", "traverse_packet")
 
 
 def log(msg):
@@ -148,6 +166,183 @@ def compare_segment(name, inputs):
     return {"err": err, "ms": k_ms, "plain_ms": p_ms, "tri_hits": tri_hits}
 
 
+def capture_queries(scene, cfg, pixel_ids):
+    """Run one wavefront sample (the cull route) on the card and keep
+    every triangle query's inputs, in call order: [(tables, ro, rd, t_far,
+    any_hit)]. Per bounce: the closest-hit query, then the shadow query."""
+    import torch
+    from offline_raytracer_tpu_torch.ops import traverse_cull
+    from offline_raytracer_tpu_torch.ops.camera import generate_rays
+    from offline_raytracer_tpu_torch.render import _paths_fn
+    from offline_raytracer_tpu_torch.utils import rng
+
+    seen = []
+    original = traverse_cull.bvh_hit_ts_cull
+
+    def recording(tables, ro, rd, t_min, t_far=None, any_hit=False):
+        seen.append((tables, ro.clone(), rd.clone(),
+                     None if t_far is None else t_far.clone(), any_hit))
+        return original(tables, ro, rd, t_min, t_far, any_hit)
+
+    keys = rng.pixel_sample_keys(rng.render_key(cfg.seed, pixel_ids.device),
+                                 pixel_ids, torch.zeros_like(pixel_ids))
+    ro, rd = generate_rays(scene.camera, cfg, pixel_ids, keys)
+    traverse_cull.bvh_hit_ts_cull = recording
+    try:
+        _paths_fn(scene, cfg.replace(traversal="cull"))(ro, rd, keys)
+    finally:
+        traverse_cull.bvh_hit_ts_cull = original
+    return seen
+
+
+def compare_query(name, query, t_min):
+    """Both kernels vs the plain dense sweep on one captured query.
+    Raises beyond the bounds; returns {kernel: measurements}."""
+    import numpy as np
+    from offline_raytracer_tpu_torch.ops import (
+        traverse, traverse_cull, traverse_packet)
+
+    tables, ro, rd, tf, any_hit = query
+    if any_hit:
+        live = (tf > t_min).cpu().numpy()
+    else:
+        live = (ro.abs().amax(1) < 1e7).cpu().numpy()   # not parked
+    n_live = max(int(live.sum()), 1)
+    p_t, p_s = (x.cpu().numpy() for x in traverse.tri_hit_plain(
+        tables, ro, rd, t_min, tf, any_hit))
+    p_ms = time_ms(lambda: traverse.tri_hit_plain(
+        tables, ro, rd, t_min, tf, any_hit), 2)
+    inputs = traverse_cull.cull_inputs(tables, ro, rd, tf)
+    runs = {
+        "traverse_cull": (
+            lambda: traverse_cull.bvh_hit_ts_cull_cuda(
+                tables, ro, rd, t_min, tf, any_hit),
+            lambda: traverse_cull.sweep_cuda(tables, inputs, t_min,
+                                             any_hit)),
+        "traverse_packet": (
+            lambda: traverse_packet.bvh_hit_ts_packet_cuda(
+                tables, ro, rd, t_min, tf, any_hit), None),
+    }
+    out = {}
+    for kname, (query_fn, kernel_only) in runs.items():
+        k_t, k_s = (x.cpu().numpy() for x in query_fn())
+        if any_hit:
+            differ = ((k_s >= 0) != (p_s >= 0)) & live
+        else:
+            differ = (k_s != p_s) & live
+        if differ.sum() > QUERY_BUDGET * n_live:
+            raise AssertionError(f"{name} {kname}: {int(differ.sum())} of "
+                                 f"{n_live} live rays differ")
+        both = (k_s == p_s) & (k_s >= 0) & live
+        err = float(np.abs(k_t[both] - p_t[both]).max()) if both.any() else 0.0
+        rel = (np.abs(k_t[both] - p_t[both])
+               / np.abs(p_t[both])).max() if both.any() else 0.0
+        if not any_hit and rel > 1e-5:
+            raise AssertionError(f"{name} {kname}: t rel err {rel:.3e}")
+        q_ms = time_ms(query_fn, 10)
+        k_ms = time_ms(kernel_only, 10) if kernel_only else q_ms
+        log(f"  {name} {kname}: R={ro.shape[0]} live={n_live} "
+            f"hits kernel={int((k_s >= 0).sum())} plain="
+            f"{int((p_s >= 0).sum())} differ={int(differ.sum())} "
+            f"max_abs_err={err:.3e} kernel_ms={k_ms:.4f} "
+            f"query_ms={q_ms:.4f} plain_ms={p_ms:.4f}")
+        out[kname] = {"err": err, "ms": k_ms, "query_ms": q_ms,
+                      "plain_ms": p_ms, "hits": int((p_s >= 0).sum()),
+                      "agreement": 1.0 - float(differ.sum()) / n_live}
+    return out
+
+
+def wavefront_phases(scene, cfg, order, card):
+    """Phases 5-7 (the wavefront route); returns the two traversal
+    kernels' JSON records."""
+    import numpy as np
+    import torch
+    from offline_raytracer_tpu_torch.ops import mega, traverse_cull
+    from offline_raytracer_tpu_torch.ops import traverse_packet
+    from offline_raytracer_tpu_torch.render import (
+        render_block, render_block_stats)
+
+    # ---- phase 5: both kernels vs the plain sweep on the route's queries
+    queries = capture_queries(scene, cfg, order[::order.shape[0] // PROBE])
+    closest = [q for q in queries if not q[4]]
+    shadow = [q for q in queries if q[4]]
+    b_last = max(b for b, q in enumerate(closest)
+                 if (q[1].abs().amax(1) < 1e7).any())
+    log(f"phase 5 queries: {len(closest)} closest-hit and {len(shadow)} "
+        f"shadow queries of one {closest[0][1].shape[0]}-ray sample; the "
+        f"last with live rays is bounce {b_last}")
+    b0 = compare_query("bounce-0 closest", closest[0], cfg.t_min)
+    if b0["traverse_cull"]["hits"] == 0:
+        fail("the probe's bounce-0 closest-hit query hit no triangle")
+    res = [b0, compare_query(f"bounce-{b_last} closest", closest[b_last],
+                             cfg.t_min),
+           compare_query("bounce-0 shadow", shadow[0], cfg.t_min)]
+
+    # ---- phase 6: the wavefront slice through each kernel
+    mods = {"cull": traverse_cull, "packet": traverse_packet}
+    launches = {}
+    for route, mod in mods.items():
+        rcfg = cfg.replace(traversal=route, spp=WSPP)
+        torch.cuda.synchronize()
+        mega.KERNEL_LAUNCHES = 0
+        for m in mods.values():
+            m.KERNEL_LAUNCHES = 0
+        t0 = time.time()
+        acc = torch.zeros((W * H, 3), dtype=torch.float32, device=order.device)
+        rays = 0.0
+        alives = []
+        for s in range(WSPP):         # ray_batch = W*H: one call per sample
+            out, alive = render_block_stats(scene, rcfg, order, s, 1)
+            acc += out
+            alives.append(alive)
+        for alive in alives:
+            a = alive.cpu().numpy().astype(np.float64)   # exact past 2**24
+            rays += W * H + a.sum() + W * H + a[:-1].sum()
+        img = (acc / WSPP).cpu().numpy()
+        dt = time.time() - t0
+        launches[route] = mod.KERNEL_LAUNCHES
+        want = 2 * BOUNCES * WSPP
+        others = [m.KERNEL_LAUNCHES for r, m in mods.items() if r != route]
+        if mod.KERNEL_LAUNCHES != want or any(others) or mega.KERNEL_LAUNCHES:
+            fail(f"{route} route launches {mod.KERNEL_LAUNCHES} (want "
+                 f"{want}), other kernels {others}, mega "
+                 f"{mega.KERNEL_LAUNCHES}")
+        if not np.isfinite(img).all() or not img.mean() > 0:
+            fail(f"{route} slice image broken: mean {img.mean()}")
+        log(f"phase 6 wavefront slice ({route}): bunny stand-in {W}x{H} "
+            f"{WSPP} spp {BOUNCES} bounces in {dt:.3f} s, {rays:.0f} rays, "
+            f"{rays / dt / 1e6:.3f} Mrays/s, {mod.KERNEL_LAUNCHES} kernel "
+            f"launches, image mean {img.mean():.5f} [{card}]")
+
+    # ---- phase 7: segment vs cull vs packet, bench.py's bounds
+    probe = order[::64]
+    outs = {m: render_block(scene, cfg.replace(traversal=m), probe, 0, 2)
+            .cpu().numpy() for m in ("mega", "cull", "packet")}
+    for m in ("cull", "packet"):
+        a, b = outs["mega"], outs[m]
+        rel = np.abs(a - b) / np.maximum(np.abs(b), 1e-2)
+        mean_ok = abs(a.mean() - b.mean()) < 2e-3 * max(b.mean(), 1e-3)
+        share = float((rel > 1e-2).mean())
+        log(f"phase 7 cross-check mega vs {m}: means {a.mean():.6f} "
+            f"{b.mean():.6f}, {share:.4%} of pixel channels differ > 1%")
+        if not mean_ok or share >= 0.005:
+            fail(f"mega vs {m} disagree")
+
+    sources = {"traverse_cull":
+               "offline_raytracer_tpu/ops/traverse_cull.py:117",
+               "traverse_packet":
+                   "offline_raytracer_tpu/ops/traverse_pallas.py:57"}
+    return [{
+        "name": k, "route": "cuda",
+        "source": f"offline_raytracer_tpu_torch/csrc/{k}.cu",
+        "replaces": sources[k],
+        "launches": launches[k.split("_")[1]],
+        "agreement": min(r[k]["agreement"] for r in res),
+        "max_abs_err": max(r[k]["err"] for r in res),
+        "ms": res[0][k]["ms"], "plain_ms": res[0][k]["plain_ms"]}
+        for k in ("traverse_cull", "traverse_packet")]
+
+
 def main() -> int:
     import torch
 
@@ -177,13 +372,16 @@ def main() -> int:
     log(f"phase 1 card: {kind}; torch {torch.__version__} "
         f"cuda {torch.version.cuda}; python {sys.version.split()[0]}")
 
-    # ---- phase 2: build the kernel from this checkout
-    info = _kernels.build("mega")
-    regs = [ln.strip() for ln in info["log"].splitlines()
-            if "registers" in ln or "spill" in ln]
-    log(f"phase 2 build: mega.cu -> {os.path.relpath(info['path'], HERE)} "
-        f"in {info['seconds']:.2f} s (cached={info['cached']}); "
-        + " | ".join(regs))
+    # ---- phase 2: build the kernels from this checkout, one nvcc each
+    t0 = time.time()
+    for name, info in _kernels.build_all(KERNELS).items():
+        regs = [ln.strip() for ln in info["log"].splitlines()
+                if "registers" in ln or "spill" in ln]
+        log(f"phase 2 build: {name}.cu -> "
+            f"{os.path.relpath(info['path'], HERE)} in "
+            f"{info['seconds']:.2f} s (cached={info['cached']}); "
+            + " | ".join(regs))
+    log(f"  all builds done in {time.time() - t0:.2f} s")
 
     # ---- phase 3: kernel vs plain version on the main path's inputs
     t0 = time.time()
@@ -247,13 +445,15 @@ def main() -> int:
         f"{launches} kernel launches, image mean {img.mean():.5f} "
         f"[{card}]")
 
+    wave = wavefront_phases(scene, cfg, order, card)
     record = {"kernels": [{
         "name": "mega_segment", "route": "cuda",
         "source": "offline_raytracer_tpu_torch/csrc/mega.cu",
         "replaces": "offline_raytracer_tpu/ops/mega.py:418",
         "launches": launches,
         "max_abs_err": max(r["err"] for r in results),
-        "ms": results[0]["ms"], "plain_ms": results[0]["plain_ms"]}]}
+        "ms": results[0]["ms"], "plain_ms": results[0]["plain_ms"]}]
+        + wave}
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

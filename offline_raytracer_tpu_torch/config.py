@@ -1,11 +1,15 @@
 """Render configuration (counterpart of ``offline_raytracer_tpu/config.py``).
 
 Same fields, defaults and validation as the JAX package's RenderConfig, so a
-configuration means the same render in both packages. Knobs that only the
-JAX package's TPU routes read (``use_pallas``, ``mega_trip_leaves``,
-``replay_tiers``, ``grad_mode``, ``accum_dtype``) are kept for parity and
-ignored here; ``traversal`` other than "auto"/"mega" is refused by
-``render.py`` until the other traversal routes are ported.
+configuration means the same render in both packages. ``traversal``,
+``use_bvh`` and ``use_pallas`` choose the route as in the JAX package
+(``render._paths_fn``): "auto"/"mega" take the segment kernel when the
+scene fits it, "cull", "packet" and "jnp" the wavefront route with the
+cull kernel, the packet kernel or the plain dense sweep for triangles;
+``use_pallas=False`` means the plain sweep, ``use_bvh=False`` the brute-
+force wavefront. Knobs only the JAX package's TPU code reads
+(``mega_trip_leaves``, ``replay_tiers``, ``grad_mode``, ``accum_dtype``)
+are kept for parity and ignored here.
 """
 
 from __future__ import annotations

@@ -4,7 +4,10 @@ Each source is compiled by ``nvcc`` for Hopper (``sm_90a``) into a shared
 library with a plain C entry point, cached under ``build/kernels/`` at the
 repository root keyed on a hash of the source and the flags, and loaded
 with ctypes. No fast-math flags: the kernels rely on IEEE division, on
-``inf`` from ``1/0`` in slab tests and on exact ``sqrtf``.
+``inf`` from ``1/0`` in slab tests and on exact ``sqrtf``. The two
+traversal kernels are also built with ``-fmad=false``, so their triangle
+test rounds exactly as the plain PyTorch version's does (no a*b+c
+contracted to an FMA); ``build_all`` starts one nvcc per source at once.
 """
 
 from __future__ import annotations
@@ -16,6 +19,7 @@ import shutil
 import subprocess
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SRC_DIR = os.path.join(_PKG_DIR, "csrc")
@@ -29,6 +33,13 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
     "mega": ("mega_segment",
              [_P] * 9 + [_I] * 14 + [_F] * 3 + [_P]),
+    "traverse_cull": ("traverse_cull", [_P] * 9 + [_I] * 3 + [_F, _P]),
+    "traverse_packet": ("traverse_packet", [_P] * 7 + [_I] * 4 + [_F, _P]),
+}
+# flags a library adds to NVCC_FLAGS
+EXTRA_FLAGS = {
+    "traverse_cull": ["-fmad=false"],
+    "traverse_packet": ["-fmad=false"],
 }
 
 _loaded: dict = {}
@@ -51,9 +62,10 @@ def build(name: str) -> dict:
     Returns {"path", "seconds", "log", "cached"}; raises on a failed build.
     """
     src = os.path.join(SRC_DIR, f"{name}.cu")
+    flags = NVCC_FLAGS + EXTRA_FLAGS.get(name, [])
     with open(src, "rb") as f:
         digest = hashlib.sha256(
-            f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+            f.read() + " ".join(flags).encode()).hexdigest()[:16]
     out = os.path.join(BUILD_DIR, f"{name}_{digest}.so")
     if os.path.exists(out):
         return {"path": out, "seconds": 0.0, "log": "", "cached": True}
@@ -62,7 +74,7 @@ def build(name: str) -> dict:
     os.close(fd)
     t0 = time.time()
     try:
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, src],
+        proc = subprocess.run([_nvcc(), *flags, "-o", tmp, src],
                               capture_output=True, text=True)
         if proc.returncode != 0:
             raise RuntimeError(
@@ -73,6 +85,14 @@ def build(name: str) -> dict:
             os.remove(tmp)
     return {"path": out, "seconds": time.time() - t0,
             "log": proc.stdout + proc.stderr, "cached": False}
+
+
+def build_all(names) -> dict:
+    """Build several libraries at once, one nvcc process each:
+    {name: build(name)}; raises if any build fails."""
+    names = list(names)
+    with ThreadPoolExecutor(max_workers=len(names)) as pool:
+        return dict(zip(names, pool.map(build, names)))
 
 
 def load(name: str):

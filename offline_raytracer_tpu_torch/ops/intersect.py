@@ -1,0 +1,311 @@
+"""Batched ray-primitive intersection (counterpart of
+``offline_raytracer_tpu/ops/intersect.py``).
+
+Branch-free functions that broadcast over a leading ray axis, in the JAX
+functions' operation order: the all-pairs ``*_ts`` sweeps (rays x prims,
+search only) and the per-winner ``*_hit_one`` recomputes, which stay
+differentiable under autograd. A miss is t = +inf; normals are geometric
+and normalised once, in ``refine_hit``.
+
+``hit_from_ids``, ``prefetch_hit_params`` and ``hit_from_params`` (the
+replay path) are not ported yet (ROADMAP A8).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+INF = float("inf")
+
+# stable type ids for combining winners
+SPHERE, BOX, CYLINDER, TRIANGLE = 0, 1, 2, 3
+
+
+@dataclasses.dataclass(frozen=True)
+class Hit:
+    """Per-ray hit record (SoA)."""
+
+    t: torch.Tensor       # (R,) distance, +inf on a miss
+    normal: torch.Tensor  # (R, 3) unit geometric normal
+    mat: torch.Tensor     # (R,) int32 material (0 on a miss)
+    inner: torch.Tensor   # (R,) bool: the ray started inside the primitive
+    valid: torch.Tensor   # (R,) bool
+
+
+def _sum3(x):
+    return torch.sum(x, dim=-1)
+
+
+def _norm(x, keepdim=False):
+    return torch.sqrt(torch.sum(x * x, dim=-1, keepdim=keepdim))
+
+
+# ---------------------------------------------------------------------------
+# sphere
+# ---------------------------------------------------------------------------
+
+
+def sphere_ts(sph, ro, rd, t_min):
+    """All-pairs sphere hit distances. ro, rd: (R, 3) -> t: (R, N)."""
+    rel = ro[:, None, :] - sph.center[None, :, :]
+    b = _sum3(rd[:, None, :] * rel)
+    c = _sum3(rel * rel) - sph.radius[None, :] ** 2
+    disc = b * b - c
+    sq = torch.sqrt(torch.clamp(disc, min=0.0))
+    tn, tp = -b - sq, -b + sq
+    t = torch.where(tn >= t_min, tn, tp)
+    ok = (disc > 0.0) & (t >= t_min)
+    return torch.where(ok, t, INF)
+
+
+def sphere_hit_one(center, radius, ro, rd, t_min):
+    """Differentiable single-sphere hit: center (R, 3), radius (R,)."""
+    rel = ro - center
+    b = _sum3(rd * rel)
+    c = _sum3(rel * rel) - radius ** 2
+    disc = b * b - c
+    sq = torch.sqrt(torch.clamp(disc, min=1e-12))
+    tn, tp = -b - sq, -b + sq
+    inner = tn < t_min
+    t = torch.where(inner, tp, tn)
+    normal = rel + t[..., None] * rd
+    return t, normal, inner
+
+
+# ---------------------------------------------------------------------------
+# axis-aligned box: entry hit if t_entry >= t_min, else the exit hit
+# ---------------------------------------------------------------------------
+
+
+def box_ts(box, ro, rd, t_min):
+    """All-pairs box hit distances. -> (R, N)."""
+    inv = 1.0 / rd
+    t0 = (box.bmin[None] - ro[:, None, :]) * inv[:, None, :]
+    t1 = (box.bmax[None] - ro[:, None, :]) * inv[:, None, :]
+    tmin = torch.minimum(t0, t1).amax(-1)
+    tmax = torch.maximum(t0, t1).amin(-1)
+    t = torch.where(tmin >= t_min, tmin, tmax)
+    ok = tmax >= torch.clamp(tmin, min=t_min)
+    return torch.where(ok, t, INF)
+
+
+def box_hit_one(bmin, bmax, ro, rd, t_min):
+    """Differentiable single-box hit: bmin, bmax (R, 3)."""
+    inv = 1.0 / rd
+    t0 = (bmin - ro) * inv
+    t1 = (bmax - ro) * inv
+    tn = torch.minimum(t0, t1)
+    tf = torch.maximum(t0, t1)
+    t_entry = tn.amax(-1)
+    t_exit = tf.amin(-1)
+    inner = t_entry < t_min
+    t = torch.where(inner, t_exit, t_entry)
+    axis = torch.where(inner, torch.argmin(tf, -1), torch.argmax(tn, -1))
+    n_axis = torch.stack([axis == 0, axis == 1, axis == 2], -1).to(ro.dtype)
+    sgn = torch.sign(torch.gather(rd, -1, axis[..., None]))[..., 0]
+    normal = n_axis * torch.where(inner, sgn, -sgn)[..., None]
+    return t, normal, inner
+
+
+# ---------------------------------------------------------------------------
+# cylinder: slab (two caps) and infinite cylinder in the local frame
+# ---------------------------------------------------------------------------
+
+
+def cylinder_ts(cyl, ro, rd, t_min):
+    """All-pairs cylinder hit distances. -> (R, N)."""
+    rel = ro[:, None, :] - cyl.base[None]
+    o = torch.einsum("nij,rnj->rni", cyl.rot, rel)
+    d = torch.einsum("nij,rj->rni", cyl.rot, rd)
+    height = _norm(cyl.axis)[None]
+
+    t_bot = -o[..., 2] / d[..., 2]
+    t_top = (height - o[..., 2]) / d[..., 2]
+    t_slab_min = torch.minimum(t_bot, t_top)
+    t_slab_max = torch.maximum(t_bot, t_top)
+
+    a = _sum3(d[..., :2] ** 2)
+    b = _sum3(d[..., :2] * o[..., :2])
+    c = _sum3(o[..., :2] ** 2) - cyl.radius[None] ** 2
+    disc = b * b - a * c
+    sq = torch.sqrt(torch.clamp(disc, min=0.0))
+    a_ok = a > 1e-12
+    safe_a = torch.where(a_ok, a, 1.0)
+    t_cyl_min = torch.where(a_ok, (-b - sq) / safe_a, -INF)
+    t_cyl_max = torch.where(a_ok, (-b + sq) / safe_a, INF)
+
+    t_entry = torch.maximum(t_slab_min, t_cyl_min)
+    t_exit = torch.minimum(t_slab_max, t_cyl_max)
+    t = torch.where(t_entry >= t_min, t_entry, t_exit)
+    ok = (disc >= 0.0) & (t_exit >= torch.clamp(t_entry, min=t_min))
+    return torch.where(ok, t, INF)
+
+
+def cylinder_hit_one(base, axis, radius, rot, ro, rd, t_min):
+    """Differentiable single-cylinder hit. rot: (R, 3, 3) world->local."""
+    o = torch.einsum("rij,rj->ri", rot, ro - base)
+    d = torch.einsum("rij,rj->ri", rot, rd)
+    height = _norm(axis)
+
+    dz = torch.where(torch.abs(d[..., 2]) > 1e-12, d[..., 2], 1e-12)
+    t_bot = -o[..., 2] / dz
+    t_top = (height - o[..., 2]) / dz
+    t_slab_min = torch.minimum(t_bot, t_top)
+    t_slab_max = torch.maximum(t_bot, t_top)
+
+    a = _sum3(d[..., :2] ** 2)
+    b = _sum3(d[..., :2] * o[..., :2])
+    c = _sum3(o[..., :2] ** 2) - radius ** 2
+    disc = b * b - a * c
+    sq = torch.sqrt(torch.clamp(disc, min=1e-12))
+    a_ok = a > 1e-12
+    safe_a = torch.where(a_ok, a, 1.0)
+    t_cyl_min = torch.where(a_ok, (-b - sq) / safe_a, -INF)
+    t_cyl_max = torch.where(a_ok, (-b + sq) / safe_a, INF)
+
+    t_entry = torch.maximum(t_slab_min, t_cyl_min)
+    t_exit = torch.minimum(t_slab_max, t_cyl_max)
+    inner = t_entry < t_min
+    t = torch.where(inner, t_exit, t_entry)
+
+    cap_win = torch.where(inner, t_slab_max < t_cyl_max,
+                          t_slab_min > t_cyl_min)
+    p_local = o + t[..., None] * d
+    zero = torch.zeros_like(t)
+    n_side = torch.stack([p_local[..., 0], p_local[..., 1], zero], -1)
+    n_cap_z = torch.where(p_local[..., 2] > 0.5 * height, 1.0, -1.0)
+    n_cap = torch.stack([zero, zero, n_cap_z.to(t.dtype)], -1)
+    n_local = torch.where(cap_win[..., None], n_cap, n_side)
+    normal = torch.einsum("rji,rj->ri", rot, n_local)
+    return t, normal, inner
+
+
+# ---------------------------------------------------------------------------
+# triangle: Moller-Trumbore
+# ---------------------------------------------------------------------------
+
+
+def _cross(a, b):
+    return torch.linalg.cross(a, b, dim=-1)
+
+
+def triangle_ts(tri, ro, rd, t_min):
+    """All-pairs triangle hit distances. -> (R, N)."""
+    e1 = tri.v1 - tri.v0
+    e2 = tri.v2 - tri.v0
+    pvec = _cross(rd[:, None, :].expand(-1, e2.shape[0], -1),
+                  e2[None].expand(rd.shape[0], -1, -1))
+    det = _sum3(pvec * e1[None])
+    tvec = ro[:, None, :] - tri.v0[None]
+    qvec = _cross(tvec, e1[None].expand_as(tvec))
+    det_ok = torch.abs(det) > 1e-9
+    inv_det = torch.where(det_ok, 1.0 / det, 0.0)
+    u = _sum3(pvec * tvec) * inv_det
+    v = _sum3(qvec * rd[:, None, :]) * inv_det
+    t = _sum3(qvec * e2[None]) * inv_det
+    ok = det_ok & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0) & (t >= t_min)
+    return torch.where(ok, t, INF)
+
+
+def triangle_hit_one(v0, v1, v2, ro, rd, t_min):
+    """Differentiable single-triangle hit: v0/v1/v2 (R, 3)."""
+    e1 = v1 - v0
+    e2 = v2 - v0
+    pvec = _cross(rd, e2)
+    det = _sum3(pvec * e1)
+    inv_det = 1.0 / torch.where(torch.abs(det) > 1e-12, det, 1e-12)
+    tvec = ro - v0
+    qvec = _cross(tvec, e1)
+    t = _sum3(qvec * e2) * inv_det
+    normal = _cross(e1, e2)
+    inner = torch.zeros_like(t, dtype=torch.bool)
+    return t, normal, inner
+
+
+# ---------------------------------------------------------------------------
+# closest hit over the whole scene
+# ---------------------------------------------------------------------------
+
+
+class Closest:
+    """Running (t, type, index) winner over all-pairs sweeps."""
+
+    def __init__(self, R, device):
+        self.t = torch.full((R,), INF, dtype=torch.float32, device=device)
+        self.type = torch.zeros((R,), dtype=torch.int32, device=device)
+        self.idx = torch.zeros((R,), dtype=torch.int32, device=device)
+
+    def consider(self, t_all, type_id):
+        t_prim, i_prim = t_all.min(-1)
+        better = t_prim < self.t
+        self.t = torch.where(better, t_prim, self.t)
+        self.type = torch.where(better, type_id, self.type).to(torch.int32)
+        self.idx = torch.where(better, i_prim.to(torch.int32), self.idx)
+
+    def consider_analytic(self, scene, ro, rd, t_min):
+        if scene.spheres.radius.shape[0]:
+            self.consider(sphere_ts(scene.spheres, ro, rd, t_min), SPHERE)
+        if scene.boxes.mat.shape[0]:
+            self.consider(box_ts(scene.boxes, ro, rd, t_min), BOX)
+        if scene.cylinders.radius.shape[0]:
+            self.consider(cylinder_ts(scene.cylinders, ro, rd, t_min),
+                          CYLINDER)
+
+
+def closest_hit_bruteforce(scene, ro, rd, t_min,
+                           include_triangles: bool = True) -> Hit:
+    """The closest hit over every primitive table, no BVH. ro, rd: (R, 3)."""
+    with torch.no_grad():
+        best = Closest(ro.shape[0], ro.device)
+        best.consider_analytic(scene, ro, rd, t_min)
+        if include_triangles and scene.triangles.mat.shape[0]:
+            best.consider(triangle_ts(scene.triangles, ro, rd, t_min),
+                          TRIANGLE)
+    return refine_hit(scene, ro, rd, t_min, best.type, best.idx,
+                      best.t < INF)
+
+
+def refine_hit(scene, ro, rd, t_min, prim_type, prim_idx, valid) -> Hit:
+    """Differentiable recompute of (t, normal, mat) for known winners: the
+    search only picks integer winners, gradients flow through this."""
+    R = ro.shape[0]
+    dev = ro.device
+    t = torch.full((R,), INF, dtype=torch.float32, device=dev)
+    normal = torch.zeros((R, 3), dtype=torch.float32, device=dev)
+    mat = torch.zeros((R,), dtype=torch.int32, device=dev)
+    inner = torch.zeros((R,), dtype=torch.bool, device=dev)
+
+    def blend(type_id, t_i, n_i, inner_i, mat_i):
+        nonlocal t, normal, mat, inner
+        sel = valid & (prim_type == type_id)
+        t = torch.where(sel, t_i, t)
+        normal = torch.where(sel[..., None], n_i, normal)
+        mat = torch.where(sel, mat_i, mat)
+        inner = torch.where(sel, inner_i, inner)
+
+    idx = prim_idx.long()
+    sph, box, cyl, tri = (scene.spheres, scene.boxes, scene.cylinders,
+                          scene.triangles)
+    if sph.radius.shape[0]:
+        i = torch.clamp(idx, 0, sph.radius.shape[0] - 1)
+        blend(SPHERE, *sphere_hit_one(sph.center[i], sph.radius[i], ro, rd,
+                                      t_min), sph.mat[i])
+    if box.mat.shape[0]:
+        i = torch.clamp(idx, 0, box.mat.shape[0] - 1)
+        blend(BOX, *box_hit_one(box.bmin[i], box.bmax[i], ro, rd, t_min),
+              box.mat[i])
+    if cyl.radius.shape[0]:
+        i = torch.clamp(idx, 0, cyl.radius.shape[0] - 1)
+        blend(CYLINDER, *cylinder_hit_one(
+            cyl.base[i], cyl.axis[i], cyl.radius[i], cyl.rot[i], ro, rd,
+            t_min), cyl.mat[i])
+    if tri.mat.shape[0]:
+        i = torch.clamp(idx, 0, tri.mat.shape[0] - 1)
+        blend(TRIANGLE, *triangle_hit_one(tri.v0[i], tri.v1[i], tri.v2[i],
+                                          ro, rd, t_min), tri.mat[i])
+
+    normal = normal / torch.clamp(_norm(normal, keepdim=True), min=1e-12)
+    return Hit(t=t, normal=normal, mat=torch.where(valid, mat, 0),
+               inner=inner & valid, valid=valid)

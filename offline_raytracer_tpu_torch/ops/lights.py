@@ -4,8 +4,9 @@ Every emissive shape is sampleable: spheres uniformly over their surface,
 cylinders over lateral surface and caps by area, meshes (and emissive
 boxes, registered as 12-triangle meshes) by an area-proportional triangle
 pick from one globally monotone CDF. The light is picked uniformly.
-``build_area_lights`` is numpy host code; ``sample_lights`` runs in torch
-on the device of its inputs, in the JAX function's operation order.
+``build_area_lights`` is numpy host code; ``sample_lights`` and the pdf
+helpers (``light_pdf_area``, ``solid_angle_pdf``, ``mis_balance``) run in
+torch on the device of their inputs, in the JAX functions' operation order.
 """
 
 from __future__ import annotations
@@ -132,6 +133,23 @@ def sample_lights(u, lights: AreaLights, emit_table) -> LightSample:
     mat = lights.mat[idx]
     return LightSample(p=p, normal=n, emit=emit_table[mat.long()],
                        pdf_area=pdf_area, mat=mat)
+
+
+def light_pdf_area(lights: AreaLights, light_idx):
+    """Area pdf of ``sample_lights`` for a light index (clipped)."""
+    L = lights.count
+    i = torch.clamp(light_idx.long(), 0, max(L - 1, 0))
+    return 1.0 / (torch.clamp(lights.area[i], min=1e-12) * max(L, 1))
+
+
+def solid_angle_pdf(pdf_area, dist, cos_light):
+    """Area pdf -> solid-angle pdf at the shading point."""
+    return pdf_area * dist ** 2 / torch.clamp(torch.abs(cos_light), min=1e-6)
+
+
+def mis_balance(p_a, p_b):
+    """Balance-heuristic weight of strategy a against b."""
+    return p_a / torch.clamp(p_a + p_b, min=1e-12)
 
 
 # ---------------------------------------------------------------------------

@@ -37,6 +37,7 @@ import numpy as np
 import torch
 
 from offline_raytracer_tpu_torch.ops.lights import sample_lights
+from offline_raytracer_tpu_torch.ops.traverse import tri_tables
 from offline_raytracer_tpu_torch.utils import rng
 
 INF = 3.4e38
@@ -57,8 +58,8 @@ N_CYL_ROWS = 15   # bx by bz r h rot(9, row-major world->local) mat
 N_MAT_ROWS = 18   # kd3 ks3 kt3 ior emit3 is_light to_light rough pd_c ps_c
 N_LGT_ROWS = 1    # 1 / (area * n_lights)
 
-ROADMAP_NOTE = ("ROADMAP queue A10/B2/B3: the cull and packet traversal "
-                "routes are not ported yet")
+ROUTE_NOTE = ("render._paths_fn sends such configs and scenes to the "
+                "wavefront route (integrator.trace_paths) instead")
 
 
 class MegaMeta:
@@ -183,10 +184,9 @@ def prepare_tables(scene, cfg) -> MegaTables:
     dev = consts.device
     bvh = scene.tri_bvh
     if scene.triangles.mat.shape[0] > 0:
-        m_pad = bvh.planes.shape[1]
-        tri = bvh.planes.permute(1, 2, 0).reshape(m_pad * LANE, 12)
+        tt = tri_tables(bvh)
+        tri, nodes = tt.tri, tt.nodes
         tri_mat = bvh.mat.to(torch.int32)
-        nodes = bvh.child_rows[:, :12]
         lb = bvh.leaf_bounds
         wmin, wmax = lb[0:3].min(1).values, lb[3:6].max(1).values
         n_leaves, m_occ = bvh.n_leaves, bvh.m_occ
@@ -910,12 +910,9 @@ def render_paths_mega(scene, cfg, ro, rd, keys, collect_stats=False,
     built here when not given; callers that launch many samples of one
     scene build it once and pass it.
     """
-    if cfg.traversal not in ("auto", "mega"):
-        raise NotImplementedError(
-            f"traversal={cfg.traversal!r}: {ROADMAP_NOTE}")
     if not mega_ok(scene, cfg):
-        raise NotImplementedError(
-            f"scene exceeds the segment kernel's tables: {ROADMAP_NOTE}")
+        raise ValueError(
+            f"scene exceeds the segment kernel's tables: {ROUTE_NOTE}")
     dev = ro.device
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"no segment implementation for device {dev}")

@@ -1,0 +1,276 @@
+"""Triangle traversal of the wavefront route (counterpart of
+``offline_raytracer_tpu/ops/traverse.py``).
+
+A triangle query has one contract, whichever implementation answers it:
+``(ro, rd, t_min, t_far, any_hit) -> (t (R,), slot (R,) int32)``. ``slot``
+indexes the leaf-ordered arrays (``bvh.tri_index``, ``bvh.mat``), -1 is a
+miss and t is +inf there. The winner is the least (t, slot) among hits with
+``t_min <= t < t_far``; that rule does not depend on visit order, so every
+implementation gives the same answer. In any-hit mode only ``slot >= 0``
+counts (t is ``t_min`` on a hit).
+
+Three implementations:
+
+- ``tri_hit_plain`` here: a chunked dense sweep over every occupied slot,
+  the plain version both kernels are held against. It is the true closest
+  hit, so it also catches a cull that drops a leaf. It stands in for the
+  JAX package's jnp packet walk (``traverse.bvh_hit_ts``), which agrees
+  with it up to exact ties; an eager node-by-node walk would wait on the
+  host at every node.
+- ``traverse_cull.bvh_hit_ts_cull``: dense leaf cull, then the listed-leaf
+  sweep kernel (``csrc/traverse_cull.cu``).
+- ``traverse_packet.bvh_hit_ts_packet``: the warp-packet tree walk kernel
+  (``csrc/traverse_packet.cu``).
+
+Traversal is search only: rays and bounds are detached, and the hit that
+shading uses (and differentiates) is recomputed by ``intersect.refine_hit``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from offline_raytracer_tpu_torch.ops import intersect as I
+from offline_raytracer_tpu_torch.ops.bvh import LEAF
+
+INF = float("inf")
+PARK = 1e8          # origin of pad rays, far outside any scene
+_BIG = torch.iinfo(torch.int64).max
+
+
+@dataclasses.dataclass(frozen=True)
+class TriTables:
+    """The packed LBVH in the layout the queries read, built once per
+    scene (``tri_tables``)."""
+
+    tri: torch.Tensor          # (S, 12) float32 coefficient row per slot
+    nodes: torch.Tensor        # (n_internal, 12) child AABBs per heap node
+    leaf_bounds: torch.Tensor  # (6, L_lane) leaf AABB rows
+    tri_index: torch.Tensor    # (S,) int32 original triangle id, -1 pad
+    n_leaves: int              # leaves of the implicit heap (power of 2)
+    m_occ: int                 # occupied leaves
+
+
+def tri_tables(bvh) -> TriTables:
+    m_pad = bvh.planes.shape[1]
+    return TriTables(
+        tri=bvh.planes.permute(1, 2, 0).reshape(m_pad * LEAF, 12)
+        .contiguous(),
+        nodes=bvh.child_rows[:, :12].contiguous(),
+        leaf_bounds=bvh.leaf_bounds, tri_index=bvh.tri_index,
+        n_leaves=bvh.n_leaves, m_occ=bvh.m_occ)
+
+
+def tri_hit_plain(tables: TriTables, ro, rd, t_min, t_far=None,
+                  any_hit: bool = False):
+    """Dense sweep over all occupied slots, in chunks of slots: the plain
+    version of both traversal kernels, same contract."""
+    R = ro.shape[0]
+    dev = ro.device
+    S = tables.m_occ * LEAF
+    bound = (torch.full((R,), INF, dtype=torch.float32, device=dev)
+             if t_far is None else t_far)
+    chunk = max(LEAF, min(S, ((1 << 24) // max(R, 1)) // LEAF * LEAF))
+    best = torch.full((R,), _BIG, dtype=torch.int64, device=dev)
+    ox, oy, oz = (ro[:, k:k + 1] for k in range(3))
+    dx, dy, dz = (rd[:, k:k + 1] for k in range(3))
+    bnd = bound[:, None]
+    for s0 in range(0, S, chunk):
+        cf = tables.tri[s0:min(S, s0 + chunk)].T
+        s1x, s1y, s1z, c1, s2x, s2y, s2z, c2, nx, ny, nz, cw = (
+            cf[k][None, :] for k in range(12))
+        o_w = ox * nx + oy * ny + oz * nz + cw
+        d_w = dx * nx + dy * ny + dz * nz
+        o_u = ox * s1x + oy * s1y + oz * s1z + c1
+        d_u = dx * s1x + dy * s1y + dz * s1z
+        o_v = ox * s2x + oy * s2y + oz * s2z + c2
+        d_v = dx * s2x + dy * s2y + dz * s2z
+        ok_w = torch.abs(d_w) > 1e-12
+        t = -o_w / torch.where(ok_w, d_w, 1.0)
+        u = o_u + t * d_u
+        v = o_v + t * d_v
+        ok = (ok_w & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0)
+              & (t >= t_min) & (t < bnd))
+        slot = torch.arange(s0, s0 + cf.shape[1], dtype=torch.int64,
+                            device=dev)[None, :]
+        if any_hit:
+            key = torch.where(ok, slot, _BIG)
+        else:
+            # t >= t_min > 0, so its bit pattern orders like its value
+            enc = t.contiguous().view(torch.int32).to(torch.int64)
+            key = torch.where(ok, (enc << 32) | slot, _BIG)
+        best = torch.minimum(best, key.min(dim=1).values)
+    hit = best < _BIG
+    slot = torch.where(hit, best & 0xFFFFFFFF, -1).to(torch.int32)
+    if any_hit:
+        t = torch.where(hit, float(t_min), INF)
+    else:
+        t = torch.where(
+            hit, (best >> 32).to(torch.int32).view(torch.float32), INF)
+    return t, slot
+
+
+def check_query(tables: TriTables, ro, rd, t_far, device_type):
+    """Device, dtype, shape and contiguity checks of a kernel query."""
+    R = ro.shape[0]
+    if ro.device.type != device_type:
+        raise ValueError(f"needs {device_type} tensors, got {ro.device}")
+    items = [("ro", ro, (R, 3)), ("rd", rd, (R, 3)),
+             ("tri", tables.tri, (tables.tri.shape[0], 12)),
+             ("nodes", tables.nodes, (tables.nodes.shape[0], 12))]
+    if t_far is not None:
+        items.append(("t_far", t_far, (R,)))
+    for name, x, shape in items:
+        if x.dtype != torch.float32:
+            raise TypeError(f"{name}: dtype {x.dtype}, want float32")
+        if x.device != ro.device:
+            raise ValueError(f"{name} on {x.device}, rays on {ro.device}")
+        if tuple(x.shape) != shape:
+            raise ValueError(f"{name}: shape {tuple(x.shape)}, want {shape}")
+        if not x.is_contiguous():
+            raise ValueError(f"{name} is not contiguous")
+    if tables.m_occ * LEAF > tables.tri.shape[0]:
+        raise ValueError("tri holds fewer slots than m_occ leaves")
+
+
+def pad_rays(ro, rd, t_far, multiple: int):
+    """Rays padded to a multiple of ``multiple`` for a kernel: pad rays
+    start far outside the scene, point along +x and are dead (t_far 0).
+    ``t_far`` None means no bound. -> contiguous (ro, rd, t_far)."""
+    R = ro.shape[0]
+    f32 = dict(dtype=torch.float32, device=ro.device)
+    pad = -R % multiple
+    if t_far is None:
+        t_far = torch.full((R,), INF, **f32)
+    ro_p = torch.cat([ro, torch.full((pad, 3), PARK, **f32)])
+    rd_p = torch.cat([rd, torch.tensor([[1.0, 0.0, 0.0]], **f32).expand(
+        pad, 3)])
+    tf_p = torch.cat([t_far, torch.zeros((pad,), **f32)])
+    return ro_p.contiguous(), rd_p.contiguous(), tf_p.contiguous()
+
+
+def coherence_order(tables: TriTables, ro, rd):
+    """Sort permutation grouping rays by direction octant, then by a
+    3-bit-per-axis Morton cell of the origin within the scene box."""
+    row = tables.nodes[0]
+    wmin = torch.minimum(row[0:3], row[6:9])
+    wmax = torch.maximum(row[3:6], row[9:12])
+    ext = torch.clamp(wmax - wmin, min=1e-6)
+    q = torch.clamp((ro - wmin) / ext * 8.0, 0.0, 7.0).to(torch.int32)
+
+    def spread3(x):
+        return (x & 1) | ((x & 2) << 2) | ((x & 4) << 4)
+
+    morton = ((spread3(q[:, 0]) << 2) | (spread3(q[:, 1]) << 1)
+              | spread3(q[:, 2]))
+    octant = (((rd[:, 0] > 0).to(torch.int32) << 2)
+              | ((rd[:, 1] > 0).to(torch.int32) << 1)
+              | (rd[:, 2] > 0).to(torch.int32))
+    return torch.argsort((octant << 9) | morton, stable=True)
+
+
+def pick_tri_hit(tables: TriTables, cfg):
+    """The triangle query for ``cfg``:
+
+    - ``use_pallas`` off, or ``traversal="jnp"``: the plain dense sweep,
+      on every device;
+    - ``traversal`` "auto", "mega" or "cull": the cull-and-sweep kernel
+      when the tree qualifies (``traverse_cull.cull_ok``, at most 4096
+      leaves), else the packet walk kernel;
+    - ``traversal="packet"``: the packet walk kernel.
+
+    "mega" reaches here only for a scene the segment kernel cannot host.
+    The kernels' wrappers take the kernel for CUDA tensors and the plain
+    version for CPU tensors.
+    """
+    if not cfg.use_pallas or cfg.traversal == "jnp":
+        return tri_hit_plain
+    from offline_raytracer_tpu_torch.ops import traverse_cull, traverse_packet
+
+    if cfg.traversal != "packet" and traverse_cull.cull_ok(tables):
+        return traverse_cull.bvh_hit_ts_cull
+    return traverse_packet.bvh_hit_ts_packet
+
+
+def sorted_tri_hit(tables, tri_hit, cfg, ro, rd, t_far=None,
+                   any_hit=False):
+    """One triangle query, search only, on coherence-sorted rays when
+    ``cfg.sort_rays``; results come back in the callers' ray order."""
+    ro, rd = ro.detach(), rd.detach()
+    t_far = None if t_far is None else t_far.detach()
+    if not cfg.sort_rays:
+        return tri_hit(tables, ro, rd, cfg.t_min, t_far, any_hit=any_hit)
+    order = coherence_order(tables, ro, rd)
+    tf = None if t_far is None else t_far[order].contiguous()
+    t_s, slot_s = tri_hit(tables, ro[order].contiguous(),
+                          rd[order].contiguous(), cfg.t_min, tf,
+                          any_hit=any_hit)
+    t = torch.empty_like(t_s)
+    slot = torch.empty_like(slot_s)
+    t[order] = t_s
+    slot[order] = slot_s
+    return t, slot
+
+
+def make_bvh_trace_fn(scene, cfg, tables: TriTables | None = None):
+    """Closest-hit function (ro, rd) -> Hit: dense sweeps for the analytic
+    primitives, the BVH query for triangles, one differentiable
+    ``refine_hit`` of the winner."""
+    bvh = scene.tri_bvh
+    if bvh is None:
+        raise ValueError("scene has no tri_bvh; build it with with_bvh=True")
+    tables = tri_tables(bvh) if tables is None else tables
+    tri_hit = pick_tri_hit(tables, cfg)
+
+    def trace(ro, rd):
+        with torch.no_grad():
+            best = I.Closest(ro.shape[0], ro.device)
+            best.consider_analytic(scene, ro, rd, cfg.t_min)
+            tt, slot = sorted_tri_hit(tables, tri_hit, cfg, ro, rd)
+            tri_id = torch.where(
+                slot >= 0, tables.tri_index[torch.clamp(slot, min=0).long()],
+                -1)
+            better = (tt < best.t) & (tri_id >= 0)
+            best.t = torch.where(better, tt, best.t)
+            best.type = torch.where(better, I.TRIANGLE, best.type).to(
+                torch.int32)
+            best.idx = torch.where(better, tri_id, best.idx)
+        return I.refine_hit(scene, ro, rd, cfg.t_min, best.type, best.idx,
+                            best.t < INF)
+
+    return trace
+
+
+def make_bvh_occlusion_fn(scene, cfg, tables: TriTables | None = None):
+    """occluded(ro, rd, t_far) -> (R,) bool: anything in [t_min, t_far)?
+    Analytic primitives by dense sweeps, triangles by the any-hit query;
+    lanes with ``t_far <= t_min`` are dead and never report a hit."""
+    bvh = scene.tri_bvh
+    if bvh is None:
+        raise ValueError("scene has no tri_bvh; build it with with_bvh=True")
+    tables = tri_tables(bvh) if tables is None else tables
+    tri_hit = pick_tri_hit(tables, cfg)
+
+    @torch.no_grad()
+    def occluded(ro, rd, t_far):
+        hit = torch.zeros(ro.shape[:1], dtype=torch.bool, device=ro.device)
+        tf = t_far[:, None]
+        if scene.spheres.radius.shape[0]:
+            hit |= (I.sphere_ts(scene.spheres, ro, rd, cfg.t_min) < tf).any(-1)
+        if scene.boxes.mat.shape[0]:
+            hit |= (I.box_ts(scene.boxes, ro, rd, cfg.t_min) < tf).any(-1)
+        if scene.cylinders.radius.shape[0]:
+            hit |= (I.cylinder_ts(scene.cylinders, ro, rd, cfg.t_min)
+                    < tf).any(-1)
+        # lanes an analytic primitive already occludes are dead for the
+        # triangle query
+        tf_tri = torch.where(hit, 0.0, t_far)
+        _, slot = sorted_tri_hit(tables, tri_hit, cfg, ro, rd, tf_tri,
+                                 any_hit=True)
+        valid_tri = (slot >= 0) & (
+            tables.tri_index[torch.clamp(slot, min=0).long()] >= 0)
+        return hit | valid_tri
+
+    return occluded

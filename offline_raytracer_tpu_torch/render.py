@@ -1,10 +1,23 @@
 """Render loop (counterpart of ``offline_raytracer_tpu/render.py``).
 
 The (pixel x sample) space is cut into ray batches; each batch traces one
-sample per pixel through ``ops/mega.render_paths_mega`` on the device the
-scene lives on. ``render_image_resumable``, ``render_image_jnp`` (the
-differentiable single-call render) and the checkpoint path are not ported
-yet (ROADMAP queue A).
+sample per pixel through the route ``_paths_fn`` picks from the config and
+the scene, never from the device:
+
+- the segment route (``ops/mega.render_paths_mega``: fused bounce
+  segments) when ``traversal`` is "auto" or "mega", ``use_bvh`` and
+  ``use_pallas`` are set and the scene fits the segment kernel's tables
+  (``mega.mega_ok``);
+- otherwise the wavefront route (``integrator.trace_paths``), whose
+  triangle queries go through the cull or packet kernel, or the plain dense
+  sweep, as ``ops/traverse.pick_tri_hit`` says; without ``use_bvh`` it is
+  the brute-force sweep over every primitive.
+
+(The JAX package also leaves the segment route on its CPU backend; the
+port runs the same route on the CPU with the plain versions.)
+``render_image_diff`` is the differentiable single-call render.
+``render_image_resumable`` and the checkpoint path are not ported yet
+(ROADMAP queue A12).
 """
 
 from __future__ import annotations
@@ -13,53 +26,91 @@ import numpy as np
 import torch
 
 from offline_raytracer_tpu_torch.config import RenderConfig
+from offline_raytracer_tpu_torch.integrator import (
+    make_brute_trace_fn, trace_paths)
 from offline_raytracer_tpu_torch.ops import mega
 from offline_raytracer_tpu_torch.ops.camera import generate_rays
+from offline_raytracer_tpu_torch.ops.traverse import (
+    make_bvh_occlusion_fn, make_bvh_trace_fn, tri_tables)
 from offline_raytracer_tpu_torch.scene.types import Scene
 from offline_raytracer_tpu_torch.utils import rng
 
 
-def _sample(scene, cfg, pixel_ids, root, sample_idx, collect_stats, tables):
-    keys = rng.pixel_sample_keys(
-        root, pixel_ids, torch.full_like(pixel_ids, sample_idx))
-    ro, rd = generate_rays(scene.camera, cfg, pixel_ids, keys)
-    return mega.render_paths_mega(scene, cfg, ro, rd, keys,
-                                  collect_stats=collect_stats, tables=tables)
+def _trace_builder(scene: Scene, cfg: RenderConfig):
+    """(closest_hit_fn, occluded_fn or None): the BVH queries when the
+    scene carries a BVH and ``use_bvh`` is set, the brute-force sweep
+    otherwise."""
+    if cfg.use_bvh and scene.tri_bvh is not None:
+        tables = tri_tables(scene.tri_bvh)
+        return (make_bvh_trace_fn(scene, cfg, tables),
+                make_bvh_occlusion_fn(scene, cfg, tables))
+    return make_brute_trace_fn(scene, cfg), None
+
+
+def _mega_active(scene: Scene, cfg: RenderConfig) -> bool:
+    """Route through the segment kernel (ops/mega.py)?"""
+    return (cfg.traversal in ("auto", "mega") and cfg.use_pallas
+            and cfg.use_bvh and mega.mega_ok(scene, cfg))
+
+
+def _paths_fn(scene: Scene, cfg: RenderConfig,
+              tables: mega.MegaTables | None = None):
+    """Path-trace callable (ro, rd, keys, collect_stats) -> radiance
+    [, alive per bounce]: the segment route when the config and scene
+    qualify, else the wavefront. ``tables``: the segment route's
+    ``mega.prepare_tables(scene, cfg)``, built here if None."""
+    if _mega_active(scene, cfg):
+        if tables is None:
+            tables = mega.prepare_tables(scene, cfg)
+
+        def f(ro, rd, keys, collect_stats=False):
+            return mega.render_paths_mega(scene, cfg, ro, rd, keys,
+                                          collect_stats=collect_stats,
+                                          tables=tables)
+        return f
+
+    trace_fn, occl_fn = _trace_builder(scene, cfg)
+
+    def f(ro, rd, keys, collect_stats=False):
+        return trace_paths(scene, cfg, trace_fn, ro, rd, keys,
+                           collect_stats=collect_stats, occl_fn=occl_fn)
+    return f
+
+
+def _accumulate(paths, scene, cfg, pixel_ids, sample_lo, n_samples,
+                collect_stats):
+    dev = pixel_ids.device
+    root = rng.render_key(cfg.seed, dev)
+    accum = torch.zeros((pixel_ids.shape[0], 3), dtype=torch.float32,
+                        device=dev)
+    alive_acc = torch.zeros((cfg.max_bounces,), dtype=torch.float32,
+                            device=dev)
+    for k in range(n_samples):
+        keys = rng.pixel_sample_keys(
+            root, pixel_ids, torch.full_like(pixel_ids, sample_lo + k))
+        ro, rd = generate_rays(scene.camera, cfg, pixel_ids, keys)
+        out = paths(ro, rd, keys, collect_stats=collect_stats)
+        if collect_stats:
+            out, alive = out
+            alive_acc = alive_acc + alive
+        accum = accum + out
+    return accum / n_samples, alive_acc
 
 
 def render_block(scene: Scene, cfg: RenderConfig, pixel_ids, sample_lo: int,
                  n_samples: int, tables: mega.MegaTables | None = None):
     """Mean radiance (P, 3) of ``n_samples`` paths per pixel id.
-    ``tables``: ``mega.prepare_tables(scene, cfg)``, built here if None."""
-    root = rng.render_key(cfg.seed, pixel_ids.device)
-    if tables is None:
-        tables = mega.prepare_tables(scene, cfg)
-    accum = torch.zeros((pixel_ids.shape[0], 3), dtype=torch.float32,
-                        device=pixel_ids.device)
-    for k in range(n_samples):
-        accum = accum + _sample(scene, cfg, pixel_ids, root, sample_lo + k,
-                                False, tables)
-    return accum / n_samples
+    ``tables``: see ``_paths_fn``."""
+    return _accumulate(_paths_fn(scene, cfg, tables), scene, cfg, pixel_ids,
+                       sample_lo, n_samples, False)[0]
 
 
 def render_block_stats(scene: Scene, cfg: RenderConfig, pixel_ids,
                        sample_lo: int, n_samples: int,
                        tables: mega.MegaTables | None = None):
     """render_block + per-bounce alive counts summed over the samples."""
-    dev = pixel_ids.device
-    root = rng.render_key(cfg.seed, dev)
-    if tables is None:
-        tables = mega.prepare_tables(scene, cfg)
-    accum = torch.zeros((pixel_ids.shape[0], 3), dtype=torch.float32,
-                        device=dev)
-    alive_acc = torch.zeros((cfg.max_bounces,), dtype=torch.float32,
-                            device=dev)
-    for k in range(n_samples):
-        radiance, alive = _sample(scene, cfg, pixel_ids, root,
-                                  sample_lo + k, True, tables)
-        accum = accum + radiance
-        alive_acc = alive_acc + alive
-    return accum / n_samples, alive_acc
+    return _accumulate(_paths_fn(scene, cfg, tables), scene, cfg, pixel_ids,
+                       sample_lo, n_samples, True)
 
 
 def tile_pixel_ids(width: int, height: int, tile: int = 32) -> np.ndarray:
@@ -82,14 +133,14 @@ def render_image(scene: Scene, cfg: RenderConfig,
     spp_chunk = max(1, min(cfg.spp, cfg.ray_batch // block))
     all_ids = torch.from_numpy(tile_pixel_ids(cfg.width, cfg.height)).to(dev)
     img = torch.zeros((n_pixels, 3), dtype=torch.float32, device=dev)
-    tables = mega.prepare_tables(scene, cfg)
+    paths = _paths_fn(scene, cfg)       # scene tables built once
     for start in range(0, n_pixels, block):
         ids = all_ids[start:min(start + block, n_pixels)]
         acc = None
         done = 0
         while done < cfg.spp:
             k = min(spp_chunk, cfg.spp - done)
-            out = render_block(scene, cfg, ids, done, k, tables)
+            out = _accumulate(paths, scene, cfg, ids, done, k, False)[0]
             acc = out * k if acc is None else acc + out * k
             done += k
             if progress:
@@ -98,3 +149,24 @@ def render_image(scene: Scene, cfg: RenderConfig,
         img[ids.long()] = acc / cfg.spp
     # pixel row 0 is the bottom scanline; flip to image order
     return img.cpu().numpy().reshape(cfg.height, cfg.width, 3)[::-1]
+
+
+def render_image_diff(scene: Scene, cfg: RenderConfig) -> torch.Tensor:
+    """Differentiable single-call render for small images (inverse
+    rendering); the JAX package's ``render_image_jnp``.
+
+    Returns an (H, W, 3) tensor, row 0 = top, with autograd attached to
+    the scene tensors that require grad. Gradients flow through the
+    wavefront route: configure one (``traversal`` "cull",
+    "packet" or "jnp", or ``use_pallas=False``), as the JAX config asks.
+    The segment route's gradient (the replay) is not ported yet.
+    """
+    if _mega_active(scene, cfg):
+        raise NotImplementedError(
+            "gradients of the segment route need the replay (ROADMAP "
+            "queue A8); set traversal to cull, packet or jnp")
+    n_pixels = cfg.width * cfg.height
+    pixel_ids = torch.arange(n_pixels, dtype=torch.int32,
+                             device=scene.device)
+    out = render_block(scene, cfg, pixel_ids, 0, cfg.spp)
+    return out.reshape(cfg.height, cfg.width, 3).flip(0)

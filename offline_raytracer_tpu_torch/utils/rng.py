@@ -99,3 +99,9 @@ def tagged_uniform_planes(keys, tag: int, n: int):
 def tagged_uniforms(keys, tag: int, n: int):
     """(R, 2) keys + counter tag -> (R, n) uniforms."""
     return tagged_uniform_planes(keys, tag, n).T
+
+
+def bounce_uniforms(keys, bounce: int, n: int):
+    """All of one bounce's uniforms, (R, n): a value depends only on (seed,
+    pixel, sample, bounce, column), never on the ray's batch slot."""
+    return tagged_uniforms(keys, bounce, n)

@@ -1,0 +1,314 @@
+"""The wavefront route's building blocks against the JAX package: bounce
+uniforms (bitwise), intersection, BSDF and light pdfs, the dense leaf cull,
+and the plain triangle sweep against the JAX cull and packet kernels in
+interpret mode."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from offline_raytracer_tpu.ops import bsdf as jax_bsdf
+from offline_raytracer_tpu.ops import intersect as jax_I
+from offline_raytracer_tpu.ops import lights as jax_lights
+from offline_raytracer_tpu.ops.bvh import build_tri_bvh
+from offline_raytracer_tpu.scene.build import SceneBuilder
+from offline_raytracer_tpu.utils import rng as jax_rng
+from offline_raytracer_tpu_torch.convert import scene_from_arrays
+from offline_raytracer_tpu_torch.ops import bsdf, intersect, lights
+from offline_raytracer_tpu_torch.ops import traverse, traverse_cull
+from offline_raytracer_tpu_torch.utils import rng
+from torch_port_cases import (
+    jax_scene_arrays, mesh_recipe, port_bvh, random_rays, random_tris,
+    shaped_recipe)
+
+torch.set_num_threads(2)
+
+# float32 results of the same formulas in the same order; XLA may still
+# reassociate a 3-term sum or contract to an FMA, hence the rtol of 1e-5
+# to 1e-4 below rather than bit equality
+T_MIN = 1e-6
+T = torch.from_numpy
+
+
+def _np(x):
+    return np.asarray(x)
+
+
+@pytest.fixture(scope="module")
+def scenes():
+    """{name: (jax scene, port scene)} for a scene of spheres, boxes and
+    cylinders and one of 576 triangles."""
+    out = {}
+    for name, recipe in (("shaped", shaped_recipe), ("mesh", mesh_recipe)):
+        js = recipe(SceneBuilder).build(32, 32)
+        out[name] = (js, scene_from_arrays(jax_scene_arrays(js)))
+    return out
+
+
+def _scene_rays(R, seed):
+    ro, rd = random_rays(R, seed, spread=3.0)
+    ro[:, 2] = np.abs(ro[:, 2]) + 0.5
+    return ro, rd
+
+
+def test_bounce_uniforms_bitwise():
+    rs = np.random.RandomState(3)
+    ids = rs.randint(0, 1 << 20, 500).astype(np.int32)
+    smp = rs.randint(0, 64, 500).astype(np.int32)
+    jk = jax_rng.pixel_sample_keys(jax_rng.render_key(5), jnp.asarray(ids),
+                                   jnp.asarray(smp))
+    tk = rng.pixel_sample_keys(rng.render_key(5), T(ids), T(smp))
+    for b in (0, 3, 11):
+        np.testing.assert_array_equal(
+            rng.bounce_uniforms(tk, b, 8).numpy(),
+            _np(jax_rng.bounce_uniforms(jk, b, 8)))
+
+
+@pytest.mark.parametrize("kind", ["sphere", "box", "cylinder", "triangle"])
+def test_all_pairs_ts_match_jax(scenes, kind):
+    name = "mesh" if kind == "triangle" else "shaped"
+    js, ts = scenes[name]
+    table = {"sphere": "spheres", "box": "boxes", "cylinder": "cylinders",
+             "triangle": "triangles"}[kind]
+    ro, rd = _scene_rays(96, seed=1)
+    ref = _np(getattr(jax_I, f"{kind}_ts")(
+        getattr(js, table), jnp.asarray(ro), jnp.asarray(rd), T_MIN))
+    got = getattr(intersect, f"{kind}_ts")(
+        getattr(ts, table), T(ro), T(rd), T_MIN).numpy()
+    hit = np.isfinite(ref)
+    assert hit.any()
+    np.testing.assert_array_equal(np.isfinite(got), hit)
+    np.testing.assert_allclose(got[hit], ref[hit], rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("name", ["shaped", "mesh"])
+def test_closest_hit_and_refine_match_jax(scenes, name):
+    """closest_hit_bruteforce: the all-pairs search, then refine_hit's
+    differentiable recompute of t, normal, material and inner."""
+    js, ts = scenes[name]
+    ro, rd = _scene_rays(128, seed=2)
+    ref = jax_I.closest_hit_bruteforce(js, jnp.asarray(ro), jnp.asarray(rd),
+                                       T_MIN)
+    got = intersect.closest_hit_bruteforce(ts, T(ro), T(rd), T_MIN)
+    valid = _np(ref.valid)
+    assert valid.mean() > 0.2
+    np.testing.assert_array_equal(got.valid.numpy(), valid)
+    np.testing.assert_array_equal(got.mat.numpy(), _np(ref.mat))
+    np.testing.assert_array_equal(got.inner.numpy(), _np(ref.inner))
+    np.testing.assert_allclose(got.t.numpy()[valid], _np(ref.t)[valid],
+                               rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(got.normal.numpy(), _np(ref.normal),
+                               rtol=1e-4, atol=1e-5)
+
+
+def _bsdf_inputs(n, seed):
+    rs = np.random.RandomState(seed)
+
+    def unit(k):
+        v = rs.randn(k, 3)
+        return (v / np.linalg.norm(v, axis=-1, keepdims=True)).astype(
+            np.float32)
+
+    mat = dict(kd=rs.uniform(0, 0.8, (n, 3)), ks=rs.uniform(0, 0.5, (n, 3)),
+               kt=rs.uniform(0, 1, (n, 3)) * (rs.rand(n, 1) < 0.4),
+               ior=rs.uniform(1.0, 2.0, n), roughness=rs.uniform(0.05, 0.8, n))
+    mat = {k: v.astype(np.float32) for k, v in mat.items()}
+    return (unit(n), unit(n), unit(n), mat,
+            rs.uniform(0, 3, n).astype(np.float32),
+            rs.uniform(0, 1, (n, 3)).astype(np.float32))
+
+
+def test_bsdf_eval_pdf_sample_match_jax():
+    """Tolerance: GGX values span decades, so rtol 1e-4 with atol 1e-5."""
+    n_, wi, wo, mat, dist, u = _bsdf_inputs(2000, seed=4)
+    jm = jax_bsdf.MatParams(**{k: jnp.asarray(v) for k, v in mat.items()})
+    tm = bsdf.MatParams(**{k: T(v) for k, v in mat.items()})
+    J, P = jnp.asarray, T
+    np.testing.assert_allclose(
+        bsdf.eval_bsdf(P(n_), P(wi), P(wo), tm, P(dist)).numpy(),
+        _np(jax_bsdf.eval_bsdf(J(n_), J(wi), J(wo), jm, J(dist))),
+        rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose(
+        bsdf.pdf_bsdf(P(n_), P(wi), P(wo), tm).numpy(),
+        _np(jax_bsdf.pdf_bsdf(J(n_), J(wi), J(wo), jm)), rtol=1e-4,
+        atol=1e-5)
+    ref = jax_bsdf.sample_bsdf(J(u), J(n_), J(wo), jm)
+    got = bsdf.sample_bsdf(P(u), P(n_), P(wo), tm)
+    np.testing.assert_array_equal(got.is_transmission.numpy(),
+                                  _np(ref.is_transmission))
+    np.testing.assert_allclose(got.wi.numpy(), _np(ref.wi), rtol=1e-4,
+                               atol=2e-5)
+
+
+@pytest.mark.parametrize("from_material", [False, True])
+def test_gather_mat_params_matches_jax(scenes, from_material):
+    js, ts = scenes["mesh"]
+    idx = np.array([0, 1, 2, 3, 4, 2, 1], np.int32)
+    ref = jax_bsdf.gather_mat_params(js.materials, jnp.asarray(idx), 0.01,
+                                     from_material)
+    got = bsdf.gather_mat_params(ts.materials, T(idx), 0.01, from_material)
+    for f in ("kd", "ks", "kt", "ior", "roughness"):
+        np.testing.assert_allclose(getattr(got, f).numpy(),
+                                   _np(getattr(ref, f)), rtol=1e-6)
+
+
+def test_light_pdfs_match_jax(scenes):
+    js, ts = scenes["shaped"]
+    rs = np.random.RandomState(6)
+    li = rs.randint(-1, 3, 50).astype(np.int32)
+    np.testing.assert_allclose(
+        lights.light_pdf_area(ts.lights, T(li)).numpy(),
+        _np(jax_lights.light_pdf_area(js.lights, jnp.asarray(li))),
+        rtol=1e-6)
+    pa, dist, cos = (rs.uniform(0.01, 2, 50).astype(np.float32),
+                     rs.uniform(0.1, 5, 50).astype(np.float32),
+                     rs.uniform(-1, 1, 50).astype(np.float32))
+    np.testing.assert_allclose(
+        lights.solid_angle_pdf(T(pa), T(dist), T(cos)).numpy(),
+        _np(jax_lights.solid_angle_pdf(jnp.asarray(pa), jnp.asarray(dist),
+                                       jnp.asarray(cos))), rtol=1e-6)
+    np.testing.assert_allclose(
+        lights.mis_balance(T(pa), T(dist)).numpy(),
+        _np(jax_lights.mis_balance(jnp.asarray(pa), jnp.asarray(dist))),
+        rtol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# triangle queries
+# ---------------------------------------------------------------------------
+
+
+def _bvh(n, seed):
+    """(JAX TriBVH, the port's TriTables of the same arrays, centroids)."""
+    v0, v1, v2 = random_tris(n, seed=seed)
+    jb = build_tri_bvh(v0, v1, v2, np.zeros(n, np.int32))
+    return jb, traverse.tri_tables(port_bvh(jb)), (v0 + v1 + v2) / 3
+
+
+def test_block_leaf_lists_match_jax():
+    from offline_raytracer_tpu.ops.traverse_cull import block_leaf_lists
+
+    jb, tables, c = _bvh(700, seed=21)       # 6 leaves
+    ro, rd = random_rays(512, seed=9, targets=c)
+    tb = np.random.RandomState(2).uniform(0.0, 12.0, 512).astype(np.float32)
+    tb[::9] = 0.0
+    ref_l, ref_c = block_leaf_lists(jb, jnp.asarray(ro), jnp.asarray(rd),
+                                    jnp.asarray(tb), 128)
+    got_l, got_c = traverse_cull.block_leaf_lists(
+        tables.leaf_bounds, tables.m_occ, T(ro), T(rd), T(tb))
+    np.testing.assert_array_equal(got_c.numpy(), _np(ref_c))
+    np.testing.assert_array_equal(got_l.numpy(), _np(ref_l))
+    assert (got_c.numpy() > 0).all()
+
+
+def test_cull_inputs_pad_and_order():
+    """The kernel's host half: rays padded to whole 128-ray rows with dead
+    parked rays, and every row once in launch order, longest list first."""
+    _, tables, _ = _bvh(700, seed=21)
+    ro, rd = random_rays(300, seed=10)
+    ro_p, rd_p, tf_p, lists, counts, rows = traverse_cull.cull_inputs(
+        tables, T(ro), T(rd))
+    assert ro_p.shape == (384, 3) and tf_p.shape == (384,)
+    np.testing.assert_array_equal(ro_p[:300].numpy(), ro)
+    assert (tf_p[300:] == 0).all() and torch.isinf(tf_p[:300]).all()
+    assert sorted(rows.tolist()) == [0, 1, 2]
+    c = counts.numpy()[rows.numpy()]
+    assert (np.diff(c) <= 0).all()
+
+
+@pytest.mark.parametrize("kernel", ["cull", "pallas"])
+def test_plain_sweep_closest_matches_jax_kernel(kernel):
+    """The plain sweep vs the JAX cull / packet kernels (interpret mode),
+    R = 160 (not a multiple of a block: padding)."""
+    from offline_raytracer_tpu.ops.traverse_cull import bvh_hit_ts_cull
+    from offline_raytracer_tpu.ops.traverse_pallas import bvh_hit_ts_pallas
+
+    jb, tables, c = _bvh(200, seed=13 if kernel == "cull" else 9)
+    ro, rd = random_rays(160, seed=3 if kernel == "cull" else 2, targets=c)
+    fn = bvh_hit_ts_cull if kernel == "cull" else bvh_hit_ts_pallas
+    t_ref, s_ref = fn(jb, jnp.asarray(ro), jnp.asarray(rd), T_MIN,
+                      interpret=True)
+    t_ref, s_ref = _np(t_ref), _np(s_ref)
+    t, s = traverse.tri_hit_plain(tables, T(ro), T(rd), T_MIN)
+    t, s = t.numpy(), s.numpy()
+    hit = np.isfinite(t_ref)
+    assert hit.sum() >= 10
+    np.testing.assert_array_equal(np.isfinite(t), hit)
+    np.testing.assert_array_equal(s >= 0, s_ref >= 0)
+    # XLA's CPU code may contract to FMA: t agrees to a few ulps
+    np.testing.assert_allclose(t[hit], t_ref[hit], rtol=1e-5)
+    # slots could differ only where two triangles tie exactly in t; these
+    # random sets have no such ties
+    np.testing.assert_array_equal(s, s_ref)
+
+
+@pytest.mark.parametrize("kernel", ["cull", "pallas"])
+def test_plain_sweep_any_hit_matches_jax_kernel(kernel):
+    """Occlusion bits equal the JAX kernels'; dead lanes (t_far = 0)
+    never report a hit; R = 200 pads."""
+    from offline_raytracer_tpu.ops.traverse_cull import bvh_hit_ts_cull
+    from offline_raytracer_tpu.ops.traverse_pallas import bvh_hit_ts_pallas
+
+    jb, tables, c = _bvh(200, seed=17 if kernel == "cull" else 11)
+    ro, rd = random_rays(200, seed=8 if kernel == "cull" else 6, targets=c)
+    tf = np.random.RandomState(5).uniform(0.5, 12.0, 200).astype(np.float32)
+    tf[::5] = 0.0
+    fn = bvh_hit_ts_cull if kernel == "cull" else bvh_hit_ts_pallas
+    _, s_ref = fn(jb, jnp.asarray(ro), jnp.asarray(rd), T_MIN,
+                  jnp.asarray(tf), any_hit=True, interpret=True)
+    t, s = traverse.tri_hit_plain(tables, T(ro), T(rd), T_MIN, T(tf),
+                                  any_hit=True)
+    occ = s.numpy() >= 0
+    np.testing.assert_array_equal(occ, _np(s_ref) >= 0)
+    assert occ.any() and not occ[::5].any()
+    assert (t.numpy()[occ] == np.float32(T_MIN)).all()
+
+
+def test_plain_sweep_least_slot_on_ties():
+    """Two copies of one triangle in different leaves: the winner is the
+    lower slot, whatever order leaves are visited in."""
+    v0, v1, v2 = random_tris(130, seed=1)
+    v0[129], v1[129], v2[129] = v0[0], v1[0], v2[0]
+    jb = build_tri_bvh(v0, v1, v2, np.zeros(130, np.int32))
+    tables = traverse.tri_tables(port_bvh(jb))
+    c = (v0[0] + v1[0] + v2[0]) / 3
+    ro = np.stack([c + [0.0, 0.0, 2.0]]).astype(np.float32)
+    rd = np.array([[0.0, 0.0, -1.0]], np.float32)
+    t, s = traverse.tri_hit_plain(tables, T(ro), T(rd), T_MIN)
+    slots = np.where(_np(jb.tri_index) % 129 == 0)[0]
+    assert int(s[0]) == slots.min() and np.isfinite(float(t[0]))
+
+
+def test_coherence_order_matches_jax():
+    from offline_raytracer_tpu.ops.traverse import coherence_order
+
+    jb, tables, c = _bvh(300, seed=4)
+    ro, rd = random_rays(256, seed=12, targets=c)
+    ro[::7] = 1e8                                   # parked rays
+    ref = _np(coherence_order(jb, jnp.asarray(ro), jnp.asarray(rd)))
+    got = traverse.coherence_order(tables, T(ro), T(rd)).numpy()
+    np.testing.assert_array_equal(got, ref)
+
+
+def test_wrappers_on_cpu_take_the_plain_sweep_and_never_the_kernel():
+    """CPU tensors go to the plain sweep (the launch counters stay put);
+    the kernels' own entry points refuse CPU tensors instead of falling
+    back."""
+    from offline_raytracer_tpu_torch.ops import traverse_packet
+
+    _, tables, c = _bvh(300, seed=4)
+    ro, rd = random_rays(200, seed=1, targets=c)
+    ref = traverse.tri_hit_plain(tables, T(ro), T(rd), T_MIN)
+    before = (traverse_cull.KERNEL_LAUNCHES, traverse_packet.KERNEL_LAUNCHES)
+    for fn in (traverse_cull.bvh_hit_ts_cull,
+               traverse_packet.bvh_hit_ts_packet):
+        t, s = fn(tables, T(ro), T(rd), T_MIN)
+        np.testing.assert_array_equal(s.numpy(), ref[1].numpy())
+        np.testing.assert_array_equal(t.numpy(), ref[0].numpy())
+    assert (traverse_cull.KERNEL_LAUNCHES,
+            traverse_packet.KERNEL_LAUNCHES) == before
+    for fn in (traverse_cull.bvh_hit_ts_cull_cuda,
+               traverse_packet.bvh_hit_ts_packet_cuda):
+        with pytest.raises(ValueError, match="cuda"):
+            fn(tables, T(ro), T(rd), T_MIN)

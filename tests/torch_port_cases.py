@@ -197,3 +197,86 @@ def check_mega(case, budget=0.002):
     assert np.abs(t_alive.sum(1) - counts).max() <= differ.sum(), (
         t_alive.sum(1), counts)
     _assert_close(rad, t_rad)
+
+
+def port_bvh(bvh):
+    """The port's TriBVH holding a JAX TriBVH's arrays."""
+    import torch
+
+    from offline_raytracer_tpu_torch.ops.bvh import TriBVH
+
+    t = lambda x: torch.from_numpy(np.array(x))  # noqa: E731
+    return TriBVH(child_rows=t(bvh.child_rows), planes=t(bvh.planes),
+                  tri_index=t(bvh.tri_index), mat=t(bvh.mat),
+                  leaf_bounds=t(bvh.leaf_bounds), n_leaves=bvh.n_leaves,
+                  m_occ=bvh.m_occ)
+
+
+def random_tris(n, seed=0, spread=4.0):
+    """tests/test_bvh.py::_random_tris."""
+    rs = np.random.RandomState(seed)
+    c = rs.uniform(-spread, spread, (n, 3)).astype(np.float32)
+    a = rs.uniform(-0.3, 0.3, (n, 3)).astype(np.float32)
+    b = rs.uniform(-0.3, 0.3, (n, 3)).astype(np.float32)
+    return c, c + a, c + b
+
+
+def random_rays(R, seed, spread=6.0, targets=None):
+    """Random origins in a cube; random unit directions, or with
+    ``targets`` (K, 3) every other ray aimed at a random target."""
+    rs = np.random.RandomState(seed)
+    ro = rs.uniform(-spread, spread, (R, 3)).astype(np.float32)
+    rd = rs.randn(R, 3).astype(np.float32)
+    if targets is not None:
+        k = rs.randint(0, targets.shape[0], R)
+        rd[::2] = (targets[k] - ro)[::2]
+    rd /= np.linalg.norm(rd, axis=-1, keepdims=True)
+    return ro, rd
+
+
+def wavefront_case(recipe, R, traversal="cull", **cfg_kw):
+    """The same rays and keys through the JAX integrator's trace_paths on
+    the CPU (its jnp BVH walk) and the port's wavefront on the CPU (the
+    plain sweep behind the cull/packet wrappers), the port fed the JAX
+    scene through scene_from_arrays. -> {"ref": (radiance, alive counts),
+    "got": (...)} as numpy."""
+    import jax.numpy as jnp
+    import torch
+
+    from offline_raytracer_tpu.config import RenderConfig as JaxConfig
+    from offline_raytracer_tpu.integrator import trace_paths as jax_trace
+    from offline_raytracer_tpu.ops.camera import generate_rays
+    from offline_raytracer_tpu.render import _trace_builder as jax_builder
+    from offline_raytracer_tpu.scene.build import SceneBuilder
+    from offline_raytracer_tpu.utils import rng as jax_rng
+    from offline_raytracer_tpu_torch.config import RenderConfig
+    from offline_raytracer_tpu_torch.convert import scene_from_arrays
+    from offline_raytracer_tpu_torch.integrator import trace_paths
+    from offline_raytracer_tpu_torch.render import _trace_builder
+    from offline_raytracer_tpu_torch.utils import rng
+
+    base = dict(width=64, height=64, spp=1, max_bounces=4, enable_dof=False)
+    base.update(cfg_kw)
+    jcfg = JaxConfig(traversal="jnp", **base)
+    scene = recipe(SceneBuilder).build(64, 64)
+    ids = np.arange(R, dtype=np.int32) % (64 * 64)
+    keys = jax_rng.pixel_sample_keys(
+        jax_rng.render_key(jcfg.seed), jnp.asarray(ids),
+        jnp.zeros((R,), jnp.int32))
+    ro, rd = generate_rays(scene.camera, jcfg, jnp.asarray(ids), keys)
+    trace_fn, occl_fn = jax_builder(scene, jcfg)
+    rad, counts = jax_trace(scene, jcfg, trace_fn, ro, rd, keys,
+                            collect_stats=True, occl_fn=occl_fn)
+
+    tscene = scene_from_arrays(jax_scene_arrays(scene))
+    cfg = RenderConfig(traversal=traversal, **base)
+    tkeys = rng.pixel_sample_keys(
+        rng.render_key(cfg.seed), torch.from_numpy(ids),
+        torch.zeros((R,), dtype=torch.int32))
+    t_trace, t_occl = _trace_builder(tscene, cfg)
+    t_rad, t_counts = trace_paths(
+        tscene, cfg, t_trace, torch.from_numpy(np.array(ro)),
+        torch.from_numpy(np.array(rd)), tkeys, collect_stats=True,
+        occl_fn=t_occl)
+    return {"ref": (np.asarray(rad), np.asarray(counts)),
+            "got": (t_rad.numpy(), t_counts.numpy())}

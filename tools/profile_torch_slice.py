@@ -1,13 +1,23 @@
 #!/usr/bin/env python3
 """Where the time of one sample of the port's slice goes, on one GPU.
 
-    python3 tools/profile_torch_slice.py [--samples N]
+    python3 tools/profile_torch_slice.py [--samples N] [--traversal ROUTE]
 
-Builds the bunny stand-in of chip_smoke.py (69,451 triangles), renders
-512x512 at 8 bounces one sample per launch, and prints: the wall time per
-sample, each segment kernel's device time (CUDA events), and a
-torch.profiler table of device time by kernel name with the device's busy
-share of the window. Needs CUDA.
+Builds the bunny stand-in of chip_smoke.py (69,451 triangles) and renders
+512x512 at 8 bounces, one sample per launch, through ``--traversal``:
+
+- ``mega`` (default): the segment route. Prints the wall time per sample,
+  each segment kernel's device time (CUDA events) at the main path's
+  shapes, and a torch.profiler table of device time by kernel name with
+  the device's busy share of the window.
+- ``cull`` or ``packet``: the wavefront route. Prints the wall time per
+  sample; then, for one sample with a synchronise around each triangle
+  query (so the parts add up, at the cost of the overlap between host and
+  device), the time of the queries split into the dense cull (cull route
+  only) and the kernel, the rest being the shading glue; then the same
+  profiler table.
+
+Needs CUDA.
 """
 
 import argparse
@@ -19,9 +29,96 @@ HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, HERE)
 
 
-def main() -> int:
+def profile_table(render, window_label):
     import torch
     from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 acc_events=True) as prof:
+        t0 = time.time()
+        render()
+        torch.cuda.synchronize()
+        window = time.time() - t0
+    # device-side rows only: operator rows repeat their kernels' time
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    rows = sorted(kernels, key=lambda e: e.self_device_time_total,
+                  reverse=True)
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3
+    print(f"profiled window ({window_label}) {window * 1e3:.3f} ms, device "
+          f"busy {busy:.3f} ms ({100 * busy / (window * 1e3):.1f}%)")
+    for e in rows[:15]:
+        print(f"  {e.self_device_time_total / 1e3:10.3f} ms "
+              f"{e.count:6d}x  {e.key[:90]}")
+
+
+class SyncTimer:
+    """Wraps a module function: synchronises before and after each call
+    and sums the wall time between."""
+
+    def __init__(self, module, name):
+        import torch
+
+        self.ms = 0.0
+        self.calls = 0
+        fn = getattr(module, name)
+
+        def timed(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.time()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            self.ms += (time.time() - t0) * 1e3
+            self.calls += 1
+            return out
+
+        self.restore = lambda: setattr(module, name, fn)
+        setattr(module, name, timed)
+
+
+def wavefront(scene, cfg, ids, samples):
+    import torch
+    from offline_raytracer_tpu_torch.ops import traverse_cull, traverse_packet
+    from offline_raytracer_tpu_torch.render import render_block
+
+    render_block(scene, cfg, ids, 0, 1)           # build + warm up
+    torch.cuda.synchronize()
+    t0 = time.time()
+    render_block(scene, cfg, ids, 1, samples)
+    torch.cuda.synchronize()
+    print(f"wall per sample ({cfg.traversal}): "
+          f"{(time.time() - t0) / samples * 1e3:.3f} ms")
+
+    # one sample with every triangle query synchronised and timed
+    if cfg.traversal == "cull":
+        timers = {"query": SyncTimer(traverse_cull, "bvh_hit_ts_cull_cuda"),
+                  "dense cull": SyncTimer(traverse_cull, "cull_inputs"),
+                  "kernel": SyncTimer(traverse_cull, "sweep_cuda")}
+    else:
+        timers = {"query": SyncTimer(traverse_packet,
+                                     "bvh_hit_ts_packet_cuda")}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    render_block(scene, cfg, ids, 1, 1)
+    torch.cuda.synchronize()
+    wall = (time.time() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    for t in timers.values():
+        t.restore()
+    q = timers["query"].ms
+    print(f"one synchronised sample: {wall:.3f} ms; triangle queries "
+          f"{q:.3f} ms in {timers['query'].calls} calls; shading glue and "
+          f"sorts {wall - q:.3f} ms; peak device memory {peak:.1f} MiB")
+    for name in ("dense cull", "kernel"):
+        if name in timers:
+            print(f"  {name}: {timers[name].ms:.3f} ms")
+    profile_table(lambda: render_block(scene, cfg, ids, 1, samples),
+                  f"{samples} samples")
+
+
+def main() -> int:
+    import torch
 
     if not torch.cuda.is_available():
         print("needs a CUDA device", file=sys.stderr)
@@ -33,15 +130,21 @@ def main() -> int:
 
     ap = argparse.ArgumentParser()
     ap.add_argument("--samples", type=int, default=4)
+    ap.add_argument("--traversal", default="mega",
+                    choices=("mega", "cull", "packet"))
     args = ap.parse_args()
 
     dev = torch.device("cuda", 0)
     scene = chip_smoke.bunny_stand_in(dev)
     cfg = RenderConfig(width=512, height=512, spp=32, max_bounces=8,
-                       enable_dof=False, ray_batch=512 * 512)
+                       enable_dof=False, ray_batch=512 * 512,
+                       traversal=args.traversal)
     ids = torch.from_numpy(tile_pixel_ids(512, 512)).to(dev)
-    tables = mega.prepare_tables(scene, cfg)      # once, as render_image
+    if args.traversal != "mega":
+        wavefront(scene, cfg, ids, args.samples)
+        return 0
 
+    tables = mega.prepare_tables(scene, cfg)      # once, as render_image
     render_block(scene, cfg, ids, 0, 1, tables)   # build + warm up
     torch.cuda.synchronize()
     t0 = time.time()
@@ -58,23 +161,8 @@ def main() -> int:
         print(f"segment b={seg.b_start} nf={seg.n_fused}: {live} live of "
               f"{state.shape[1]}, kernel {ms:.3f} ms")
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 acc_events=True) as prof:
-        t0 = time.time()
-        render_block(scene, cfg, ids, 1, args.samples, tables)
-        torch.cuda.synchronize()
-        window = time.time() - t0
-    # device-side rows only: operator rows repeat their kernels' time
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    rows = sorted(kernels, key=lambda e: e.self_device_time_total,
-                  reverse=True)
-    busy = sum(e.self_device_time_total for e in kernels) / 1e3
-    print(f"profiled window {window * 1e3:.3f} ms, device busy "
-          f"{busy:.3f} ms ({100 * busy / (window * 1e3):.1f}%)")
-    for e in rows[:15]:
-        print(f"  {e.self_device_time_total / 1e3:10.3f} ms "
-              f"{e.count:6d}x  {e.key[:90]}")
+    profile_table(lambda: render_block(scene, cfg, ids, 1, args.samples,
+                                       tables), f"{args.samples} samples")
     return 0
 
 
