@@ -33,7 +33,22 @@ Phases, each printing its own line; any failure exits non-zero:
    bounce and sample);
 7. the cross-check of ``bench.py:69-85``: a 4,096-pixel probe (every 64th
    pixel of the tile order) at 2 spp through the segment, cull and packet
-   routes, with that check's bounds.
+   routes, with that check's bounds;
+8. the gradient step of ``bench.py:234-285`` on the stand-in: the first
+   65,536 pixels of the tile order, 1 spp, 8 bounces, loss
+   ``mean(render_block(...))``, gradients with respect to the albedo and
+   the mesh's ``v0``, ``grad_mode="replay-value"`` (segment launches with
+   records, then the replay of the records under autograd): 1 untimed and 4
+   timed steps with one sync, fwd+bwd Mrays/s counted as bench.py counts,
+   4 segment launches per step and none of the traversal kernels, finite
+   nonzero gradients equal to the kernel-value route's, the kernel's
+   radiance against its replay's and its records against the plain
+   version's on the step's rays;
+9. inverse rendering (``diff.optimize``) on the same pixels: the stand-in's
+   albedo set wrong, 8 Adam steps of 4 spp at lr 0.1 towards an 8-spp
+   render of the true scene; the loss of the result on the first step's
+   samples must be below the first step's, and the albedo nearer the
+   truth.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Without CUDA it exits 1 and prints no
@@ -58,6 +73,11 @@ N_TRIS = 69451
 RECORD_BUDGET = 0.002     # share of live (id, vis) records allowed to differ
 WSPP = 4                  # samples of the wavefront slice, per route
 QUERY_BUDGET = 0.002      # share of live rays whose slot or bit may differ
+GRAD_PIXELS = 1 << 16     # pixels of the gradient step (bench.py's gids)
+GRAD_STEPS = 4            # timed gradient steps
+INV_STEPS = 8             # Adam steps of the inverse-rendering phase
+INV_SPP = 4               # samples per pixel of each of its steps
+WRONG_ALBEDO = (0.1, 0.8, 0.8)
 KERNELS = ("mega", "traverse_cull", "traverse_packet")
 
 
@@ -343,6 +363,168 @@ def wavefront_phases(scene, cfg, order, card):
         for k in ("traverse_cull", "traverse_packet")]
 
 
+def take_counts():
+    """Launches of the (mega, cull, packet) kernels since the last call;
+    sets the three counts to 0."""
+    from offline_raytracer_tpu_torch.ops import (
+        mega, traverse_cull, traverse_packet)
+
+    mods = (mega, traverse_cull, traverse_packet)
+    counts = tuple(m.KERNEL_LAUNCHES for m in mods)
+    for m in mods:
+        m.KERNEL_LAUNCHES = 0
+    return counts
+
+
+def grad_step(scene, cfg, gids, mode):
+    """One gradient step of bench.py's loss: (loss, (d albedo, d v0))."""
+    import dataclasses
+
+    import torch
+    from offline_raytracer_tpu_torch.render import render_block
+
+    kd = scene.materials.diffuse.clone().requires_grad_(True)
+    v0 = scene.triangles.v0.clone().requires_grad_(True)
+    sc = dataclasses.replace(
+        scene, materials=dataclasses.replace(scene.materials, diffuse=kd),
+        triangles=dataclasses.replace(scene.triangles, v0=v0))
+    loss = render_block(sc, cfg.replace(grad_mode=mode), gids, 0, 1).mean()
+    return loss, torch.autograd.grad(loss, (kd, v0))
+
+
+def gradient_phases(scene, cfg, order, card):
+    """Phases 8-9 (the gradient path); returns the segment launches they
+    made."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from offline_raytracer_tpu_torch import diff
+    from offline_raytracer_tpu_torch.integrator import trace_paths
+    from offline_raytracer_tpu_torch.ops import mega
+    from offline_raytracer_tpu_torch.ops.camera import generate_rays
+    from offline_raytracer_tpu_torch.render import (
+        render_block, render_block_stats)
+    from offline_raytracer_tpu_torch.utils import rng
+
+    gcfg = cfg.replace(spp=1, grad_mode="replay-value")
+    gids = order[:GRAD_PIXELS]
+    per_step = len(mega.segment_plan(gcfg)[0])
+    nee = gcfg.enable_nee and scene.n_lights > 0
+    torch.cuda.synchronize()
+    take_counts()
+
+    # ---- phase 8: the gradient step
+    _, alive = render_block_stats(scene, gcfg, gids, 0, 1)
+    a = alive.cpu().numpy().astype(np.float64)
+    rays = GRAD_PIXELS + a.sum() + (GRAD_PIXELS + a[:-1].sum() if nee else 0)
+    grad_step(scene, gcfg, gids, "replay-value")          # untimed
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    total = take_counts()[0]
+    t0 = time.time()
+    for _ in range(GRAD_STEPS):
+        loss, grads = grad_step(scene, gcfg, gids, "replay-value")
+    torch.cuda.synchronize()
+    dt = (time.time() - t0) / GRAD_STEPS
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    step_launches, cull, packet = take_counts()
+    total += step_launches
+    if step_launches != per_step * GRAD_STEPS or cull or packet:
+        fail(f"gradient steps launched {step_launches} segments (want "
+             f"{per_step * GRAD_STEPS}), cull {cull}, packet {packet}")
+    for name, g in zip(("albedo", "v0"), grads):
+        if not bool(torch.isfinite(g).all()) or not g.abs().max() > 0:
+            fail(f"d loss / d {name} is not finite and nonzero")
+    mrays = rays / dt / 1e6
+    log(f"phase 8 gradient step: bunny stand-in {GRAD_PIXELS} pixels 1 spp "
+        f"{gcfg.max_bounces} bounces, replay-value, {dt * 1e3:.3f} ms per "
+        f"step ({GRAD_STEPS} steps, one sync), {rays:.0f} rays per step, "
+        f"{mrays:.3f} fwd+bwd Mrays/s, loss {loss.item():.6f}, "
+        f"{step_launches // GRAD_STEPS} segment launches per step, 0 cull "
+        f"or packet, peak device memory {peak:.1f} MiB, |d albedo| max "
+        f"{grads[0].abs().max().item():.4e}, |d v0| max "
+        f"{grads[1].abs().max().item():.4e} [{card}]")
+    _, k_grads = grad_step(scene, gcfg, gids, "kernel-value")
+    for name, r, k in zip(("albedo", "v0"), grads, k_grads):
+        r, k = r.cpu().numpy(), k.cpu().numpy()
+        scale = float(np.abs(r).max())
+        np.testing.assert_allclose(k, r, rtol=1e-4, atol=1e-6 * scale,
+                                   err_msg=f"kernel-value d {name}")
+        log(f"  kernel-value vs replay-value d {name}: max abs diff "
+            f"{np.abs(k - r).max():.3e} (max |g| {scale:.3e})")
+
+    # the step's rays: kernel radiance vs the replay's, records vs plain
+    keys = rng.pixel_sample_keys(rng.render_key(gcfg.seed, gids.device),
+                                 gids, torch.zeros_like(gids))
+    ro, rd = generate_rays(scene.camera, gcfg, gids, keys)
+    k_rad, ids, vis, k_alive = mega.render_paths_mega(
+        scene, gcfg, ro, rd, keys, collect_records=True)
+    with torch.no_grad():
+        r_rad = trace_paths(scene, gcfg, None, ro, rd, keys,
+                            replay=(ids, vis))
+    ka, ra = k_rad.cpu().numpy(), r_rad.cpu().numpy()
+    d = np.abs(ka - ra)
+    log(f"  kernel vs replay radiance on {GRAD_PIXELS} rays: max abs "
+        f"{d.max():.3e}, {(d > 1e-3).mean():.4%} of channels > 1e-3, mean "
+        f"diff {abs(ka.mean() - ra.mean()):.3e}")
+    if d.max() >= 0.3 or (d > 1e-3).mean() >= 0.002 or abs(
+            ka.mean() - ra.mean()) >= 2e-4:
+        fail("kernel and replay radiance disagree")
+    original = mega.mega_segment
+    mega.mega_segment = mega.mega_segment_plain
+    try:
+        _, p_ids, p_vis, _ = mega.render_paths_mega(
+            scene, gcfg, ro, rd, keys, collect_records=True)
+    finally:
+        mega.mega_segment = original
+    live = torch.cat([torch.ones_like(k_alive[:1]), k_alive[:-1]]) > 0.5
+    differ = ((ids != p_ids) | (vis != p_vis)) & live
+    share = differ.sum().item() / max(live.sum().item(), 1)
+    log(f"  records vs the plain version: {differ.sum().item()} of "
+        f"{live.sum().item()} live records differ ({share:.4%})")
+    if share > RECORD_BUDGET:
+        fail("the step's records disagree with the plain version's")
+
+    # ---- phase 9: inverse rendering
+    target = render_block(scene, gcfg, gids, 1000, 8)
+    m = int(scene.triangles.mat[0])             # the mesh's material
+    wrong = scene.materials.diffuse.clone()
+    wrong[m] = torch.tensor(WRONG_ALBEDO, device=wrong.device)
+    scene0 = dataclasses.replace(scene, materials=dataclasses.replace(
+        scene.materials, diffuse=wrong))
+    icfg = gcfg.replace(spp=INV_SPP)
+    total += take_counts()[0]
+    t0 = time.time()
+    params, losses = diff.optimize(scene0, icfg, target, gids,
+                                   diff.material_params(scene0),
+                                   steps=INV_STEPS, lr=0.1)
+    inv_s = time.time() - t0
+    inv_launches, cull, packet = take_counts()
+    total += inv_launches
+    if inv_launches != per_step * INV_SPP * INV_STEPS or cull or packet:
+        fail(f"inverse rendering launched {inv_launches} segments (want "
+             f"{per_step * INV_SPP * INV_STEPS}), cull {cull}, packet "
+             f"{packet}")
+    # the recovered parameters on the first step's samples: the same
+    # noise as losses[0], so the two differ by the parameters alone
+    with torch.no_grad():
+        final = diff.make_loss_fn(scene0, icfg, target, gids)(params).item()
+    truth = scene.materials.diffuse[m].cpu().numpy()
+    rec = params["diffuse"][m].cpu().numpy()
+    err0 = float(np.abs(np.array(WRONG_ALBEDO) - truth).mean())
+    err = float(np.abs(rec - truth).mean())
+    log(f"phase 9 inverse rendering: {INV_STEPS} Adam steps in "
+        f"{inv_s:.3f} s, losses {' '.join(f'{x:.6f}' for x in losses)}, "
+        f"the result on step 0's samples {final:.6f}; mesh albedo "
+        f"{np.round(rec, 4).tolist()} (truth {truth.tolist()}), mean abs "
+        f"error {err0:.4f} -> {err:.4f}, {inv_launches} segment launches "
+        f"[{card}]")
+    if not final < losses[0] or not err < err0:
+        fail("inverse rendering did not improve the loss and the albedo")
+    return total + take_counts()[0]
+
+
 def main() -> int:
     import torch
 
@@ -446,11 +628,12 @@ def main() -> int:
         f"[{card}]")
 
     wave = wavefront_phases(scene, cfg, order, card)
+    grad_launches = gradient_phases(scene, cfg, order, card)
     record = {"kernels": [{
         "name": "mega_segment", "route": "cuda",
         "source": "offline_raytracer_tpu_torch/csrc/mega.cu",
         "replaces": "offline_raytracer_tpu/ops/mega.py:418",
-        "launches": launches,
+        "launches": launches, "grad_launches": grad_launches,
         "max_abs_err": max(r["err"] for r in results),
         "ms": results[0]["ms"], "plain_ms": results[0]["plain_ms"]}]
         + wave}

@@ -7,9 +7,13 @@ configuration means the same render in both packages. ``traversal``,
 scene fits it, "cull", "packet" and "jnp" the wavefront route with the
 cull kernel, the packet kernel or the plain dense sweep for triangles;
 ``use_pallas=False`` means the plain sweep, ``use_bvh=False`` the brute-
-force wavefront. Knobs only the JAX package's TPU code reads
-(``mega_trip_leaves``, ``replay_tiers``, ``grad_mode``, ``accum_dtype``)
-are kept for parity and ignored here.
+force wavefront. ``grad_mode`` picks how a differentiated render on the
+segment route gets its value ("kernel-value": the kernel's radiance with
+the replay's gradient; "replay-value": the replay's radiance, see
+``replay.py``), and ``replay_tiers`` compacts the replay
+(``integrator.trace_paths``). Knobs only the JAX package's TPU code reads
+(``mega_trip_leaves``, ``accum_dtype``) are kept for parity and ignored
+here.
 """
 
 from __future__ import annotations

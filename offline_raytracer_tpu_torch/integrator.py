@@ -1,5 +1,5 @@
 """Wavefront path-tracing integrator (counterpart of
-``offline_raytracer_tpu/integrator.py``, its non-replay branch).
+``offline_raytracer_tpu/integrator.py``).
 
 A whole wavefront of rays advances bounce by bounce through a Python loop
 over ``max_bounces`` (the JAX package's ``lax.scan`` body), with an alive
@@ -25,16 +25,14 @@ import torch
 
 from offline_raytracer_tpu_torch.ops import bsdf as bsdf_ops
 from offline_raytracer_tpu_torch.ops import lights as light_ops
-from offline_raytracer_tpu_torch.ops.intersect import closest_hit_bruteforce
+from offline_raytracer_tpu_torch.ops.intersect import (
+    closest_hit_bruteforce, hit_from_params, prefetch_hit_params)
 from offline_raytracer_tpu_torch.utils import rng
 from offline_raytracer_tpu_torch.utils.math import normalize
 
 # where terminated lanes are parked: far outside any scene box, small
 # enough that squared terms of the analytic tests stay finite in float32
 PARK_ORIGIN = 1e8
-
-ROADMAP_REPLAY = ("replay of recorded hits is not ported yet (ROADMAP "
-                  "queue A8)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -55,6 +53,53 @@ def make_brute_trace_fn(scene, cfg):
     return trace
 
 
+
+
+def _at(tree, i):
+    """Index ``i`` of the leading axis of every tensor in a nest of dicts
+    and dataclasses."""
+    if isinstance(tree, dict):
+        return {k: _at(v, i) for k, v in tree.items()}
+    if dataclasses.is_dataclass(tree):
+        return dataclasses.replace(tree, **{
+            f.name: _at(getattr(tree, f.name), i)
+            for f in dataclasses.fields(tree)})
+    return tree[i]
+
+
+def _replay_tables(scene, cfg, ids, vis, keys, b_lo):
+    """The replay's id-dependent gathers and draws for bounces [b_lo, b_lo
+    + nb) of the current (possibly compacted) rays, built once per
+    segment so the gathers, and the scatter-adds of their backward that
+    carry the parameter gradients, are sized to the segment's width.
+    ids, vis: (nb, S). Every tensor has (nb, S) in front."""
+    mats = scene.materials
+    do_nee = cfg.enable_nee and scene.n_lights > 0
+    nb, S = ids.shape
+    hp = prefetch_hit_params(scene, ids)
+    u8 = torch.stack([rng.bounce_uniforms(keys, b_lo + i, 8)
+                      for i in range(nb)])
+    mat = hp["mat"].long()
+    pre = {
+        "hp": hp, "u8": u8, "vis": vis,
+        "matp": bsdf_ops.gather_mat_params(
+            mats, mat, cfg.default_roughness, cfg.roughness_from_material),
+        "emit": mats.emit[mat], "is_light": mats.is_light[mat],
+        "light_idx": scene.mat_to_light[mat],
+    }
+    if do_nee and cfg.enable_mis:
+        pre["pdf_area_hit"] = light_ops.light_pdf_area(scene.lights,
+                                                       pre["light_idx"])
+    if do_nee:
+        ls = light_ops.sample_lights(u8[..., 0:4].reshape(nb * S, 4),
+                                     scene.lights, mats.emit)
+        pre["ls"] = dataclasses.replace(ls, **{
+            f.name: getattr(ls, f.name).reshape(
+                (nb, S) + getattr(ls, f.name).shape[1:])
+            for f in dataclasses.fields(ls)})
+    return pre
+
+
 def trace_paths(scene, cfg, trace_fn, origin, direction, ps_keys,
                 collect_stats: bool = False, occl_fn=None, replay=None):
     """Trace R paths to completion; radiance (R, 3).
@@ -63,9 +108,19 @@ def trace_paths(scene, cfg, trace_fn, origin, direction, ps_keys,
     number of lanes that made a continuation at each bounce, (max_bounces,)
     float32. ``occl_fn(ro, rd, t_far) -> occluded`` answers the NEE shadow
     queries; without it they go through ``trace_fn``.
+
+    ``replay``: ``(hit ids (B, R) int32, NEE visibility (B, R))`` records
+    of the segment kernel (``mega.render_paths_mega(collect_records=True)``).
+    Then nothing is traversed: each bounce's hit is recomputed attached from
+    the recorded winner (``intersect.hit_from_params``) and the shadow test
+    is the recorded bit. The counter-based draws regenerate every sampled
+    direction, RR decision and light point, so this replays the paths the
+    kernel traced, differentiably (path-replay backprop); ``trace_fn`` and
+    ``occl_fn`` may be None. ``cfg.replay_tiers`` ((bounce, divisor), ...)
+    compacts the replay: at each listed bounce it banks the radiance so far
+    and keeps the first R // divisor rays that hit at the previous bounce
+    (stable order), which is exact while the survivors fit.
     """
-    if replay is not None:
-        raise NotImplementedError(ROADMAP_REPLAY)
     R = origin.shape[0]
     dev = origin.device
     f32 = dict(dtype=torch.float32, device=dev)
@@ -79,19 +134,29 @@ def trace_paths(scene, cfg, trace_fn, origin, direction, ps_keys,
     mats = scene.materials
     do_nee = cfg.enable_nee and scene.n_lights > 0
     do_mis = do_nee and cfg.enable_mis
-    counts = []
 
-    for bounce_idx in range(cfg.max_bounces):
-        u8 = rng.bounce_uniforms(state.keys, bounce_idx, 8)
-        hit = trace_fn(state.origin, state.direction)
-        mat_i = hit.mat.long()
-        emit = mats.emit[mat_i]
-        hit_light = mats.is_light[mat_i] & hit.valid
+    def bounce(state, bounce_idx, pre):
+        R_cur = state.alive.shape[0]     # replay tiers shrink the batch
+        if pre is None:
+            u8 = rng.bounce_uniforms(state.keys, bounce_idx, 8)
+            hit = trace_fn(state.origin, state.direction)
+            mat_i = hit.mat.long()
+            emit = mats.emit[mat_i]
+            is_light = mats.is_light[mat_i]
+            light_idx = scene.mat_to_light[mat_i]
+        else:
+            u8 = pre["u8"]
+            hit = hit_from_params(pre["hp"], state.origin, state.direction,
+                                  cfg.t_min)
+            emit = pre["emit"]
+            is_light = pre["is_light"]
+            light_idx = pre["light_idx"]
+        hit_light = is_light & hit.valid
 
         # ---- emission (implicit light connection)
         if do_mis:
-            light_idx = scene.mat_to_light[mat_i]
-            pdf_area = light_ops.light_pdf_area(scene.lights, light_idx)
+            pdf_area = (light_ops.light_pdf_area(scene.lights, light_idx)
+                        if pre is None else pre["pdf_area_hit"])
             cos_l = torch.sum(hit.normal * (-state.direction), -1)
             p_nee = light_ops.solid_angle_pdf(pdf_area, hit.t, cos_l)
             mis_applies = (light_idx >= 0) & (state.prev_pdf >= 0.0)
@@ -102,12 +167,11 @@ def trace_paths(scene, cfg, trace_fn, origin, direction, ps_keys,
             # NEE without MIS: an emitter found by a sampled continuation
             # is integrated by the explicit connection already, unless it
             # is back-facing (NEE only samples front faces)
-            light_idx = scene.mat_to_light[mat_i]
             front = torch.sum(hit.normal * (-state.direction), -1) > 1e-6
             mis_w = torch.where(
                 (light_idx >= 0) & (state.prev_pdf >= 0.0) & front, 0.0, 1.0)
         else:
-            mis_w = torch.ones((R,), **f32)
+            mis_w = torch.ones((R_cur,), **f32)
         if cfg.reference_rr_quirk and cfg.russian_roulette < 1.0:
             # the reference's uncompensated final RR gate on light-
             # terminated paths, only after a bounce that ran an RR gate
@@ -128,15 +192,21 @@ def trace_paths(scene, cfg, trace_fn, origin, direction, ps_keys,
         x = torch.where(alive[..., None], x, state.origin)
         wo = -state.direction
         n = hit.normal
-        safe_mat = torch.where(alive, hit.mat, 0)
-        matp = bsdf_ops.gather_mat_params(
-            mats, safe_mat, cfg.default_roughness,
-            cfg.roughness_from_material)
+        if pre is None:
+            matp = bsdf_ops.gather_mat_params(
+                mats, torch.where(alive, hit.mat, 0), cfg.default_roughness,
+                cfg.roughness_from_material)
+        else:
+            # gathered by the recorded material (0 on a miss); dead lanes'
+            # values only need to be finite, every use is alive-masked
+            matp = pre["matp"]
         seg_len = torch.where(hit.valid, hit.t, 0.0)
 
         # ---- next-event estimation
         if do_nee:
-            ls = light_ops.sample_lights(u8[:, 0:4], scene.lights, mats.emit)
+            ls = (light_ops.sample_lights(u8[:, 0:4], scene.lights,
+                                          mats.emit)
+                  if pre is None else pre["ls"])
             to_l = ls.p - x
             dist_l = torch.sqrt(torch.sum(to_l * to_l, -1))
             wi_l = to_l / torch.clamp(dist_l, min=1e-9)[..., None]
@@ -146,7 +216,9 @@ def trace_paths(scene, cfg, trace_fn, origin, direction, ps_keys,
             # shadow query with the light distance as the bound; dead
             # lanes launch with t_far = 0 and cost nothing
             worth = alive & (cos_l > 1e-6)
-            if occl_fn is not None:
+            if pre is not None:
+                visible = pre["vis"] > 0.5
+            elif occl_fn is not None:
                 x_sh = torch.where(worth[..., None], x, PARK_ORIGIN)
                 tf = torch.where(worth, dist_l * (1.0 - 1e-3), 0.0)
                 visible = ~occl_fn(x_sh.detach(), wi_l.detach(), tf.detach())
@@ -158,7 +230,7 @@ def trace_paths(scene, cfg, trace_fn, origin, direction, ps_keys,
                 p_b = bsdf_ops.pdf_bsdf(n, wi_l, wo, matp)
                 w_l = light_ops.mis_balance(p_nee_solid, p_b)
             else:
-                w_l = torch.ones((R,), **f32)
+                w_l = torch.ones((R_cur,), **f32)
             good = alive & visible & (cos_l > 1e-6) & (p_nee_solid > 1e-9)
             # cos/dist^2 and the area pdf stay attached (they carry the
             # derivatives in shading and light geometry); only the MIS
@@ -193,13 +265,59 @@ def trace_paths(scene, cfg, trace_fn, origin, direction, ps_keys,
             state.origin + (t_safe + cfg.hit_eps)[..., None] * state.direction,
             x)
 
-        state = PathState(
+        return PathState(
             origin=torch.where(alive[..., None], x_next, PARK_ORIGIN),
             direction=torch.where(alive[..., None], wi, state.direction),
             throughput=throughput, radiance=radiance, alive=alive,
             prev_pdf=torch.where(alive, pdf, -1.0), keys=state.keys)
-        counts.append(alive.sum(dtype=torch.float32))
 
+    counts = []
+    if replay is None:
+        for b in range(cfg.max_bounces):
+            state = bounce(state, b, None)
+            counts.append(state.alive.sum(dtype=torch.float32))
+        if collect_stats:
+            return state.radiance, torch.stack(counts)
+        return state.radiance
+
+    # replay: a new segment starts at every tier bounce whose capacity is
+    # below the current width; the records are monotone (hit ids, then -1
+    # for good), so a ray can add radiance at bounces >= b only if it hit
+    # at bounce b - 1
+    B = cfg.max_bounces
+    tiers = {int(b): int(d) for b, d in cfg.replay_tiers}
+    starts = [0] + sorted(b for b, d in tiers.items()
+                          if 0 < b < B and max(R // d, 1) < R)
+    ids_all, vis_all = replay[0].detach(), replay[1].detach()
+    rad_full = torch.zeros((R, 3), **f32)
+    abs_idx = torch.arange(R, device=dev)
+    tiered = False
+    for b0, b1 in zip(starts, starts[1:] + [B]):
+        if b0 > 0:
+            S = max(R // tiers[b0], 1)
+            if S < state.alive.shape[0]:
+                mask = ids_all[b0 - 1][abs_idx] >= 0
+                sel = torch.argsort((~mask).to(torch.int8), stable=True)[:S]
+                rad_full = rad_full.index_add(0, abs_idx, state.radiance)
+                state = PathState(
+                    origin=state.origin[sel], direction=state.direction[sel],
+                    throughput=state.throughput[sel],
+                    radiance=torch.zeros((S, 3), **f32),
+                    alive=state.alive[sel] & mask[sel],
+                    prev_pdf=state.prev_pdf[sel], keys=state.keys[sel])
+                abs_idx = abs_idx[sel]
+                tiered = True
+        if tiered:
+            ids_seg, vis_seg = ids_all[b0:b1, abs_idx], vis_all[b0:b1, abs_idx]
+        else:   # the identity subset: plain slices, no gather
+            ids_seg, vis_seg = ids_all[b0:b1], vis_all[b0:b1]
+        pre = _replay_tables(scene, cfg, ids_seg, vis_seg, state.keys, b0)
+        for b in range(b0, b1):
+            state = bounce(state, b, _at(pre, b - b0))
+            counts.append(state.alive.sum(dtype=torch.float32))
+    radiance = state.radiance
+    if tiered:
+        radiance = rad_full.index_add(0, abs_idx, radiance)
     if collect_stats:
-        return state.radiance, torch.stack(counts)
-    return state.radiance
+        return radiance, torch.stack(counts)
+    return radiance

@@ -37,6 +37,14 @@ class BsdfSample:
     is_transmission: torch.Tensor  # (R,) bool: the ray passes the surface
 
 
+def _clip(x, lo, hi):
+    """jnp.clip with its gradient at the bounds (half, where torch.clamp
+    passes all of it)."""
+    # 0-dim CPU tensors act as scalars on any device, with no copy
+    lo, hi = (torch.tensor(v, dtype=x.dtype) for v in (lo, hi))
+    return torch.minimum(torch.maximum(x, lo), hi)
+
+
 def _dot(a, b):
     return torch.sum(a * b, dim=-1)
 
@@ -122,7 +130,7 @@ def eval_bsdf(n, wi, wo, mat: MatParams, distance):
     att = torch.where(
         (n_dot_wo < 0.0)[..., None],
         torch.exp(distance[..., None]
-                  * torch.log(torch.clamp(mat.kt, 1e-6, 1.0))),
+                  * torch.log(_clip(mat.kt, 1e-6, 1.0))),
         1.0)
 
     d_t = ggx_d(_dot(n, m), mat.roughness)
@@ -231,7 +239,10 @@ def gather_mat_params(materials, mat_idx, default_roughness,
     ``roughness_from_material`` the Phong exponent maps to a GGX alpha,
     sqrt(2 / (exp + 2)); otherwise every material has the default."""
     i = mat_idx.long()
-    ior = torch.clamp(materials.ior[i], min=1.0)
+    # maximum, not clamp: at a tie (every default material has ior 1)
+    # it passes half the gradient, as jnp.maximum does
+    ior = materials.ior[i]
+    ior = torch.maximum(ior, torch.ones_like(ior))
     if roughness_from_material:
         rough = torch.sqrt(2.0 / (materials.spec_exp[i] + 2.0))
     else:

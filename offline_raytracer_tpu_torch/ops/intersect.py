@@ -5,10 +5,11 @@ Branch-free functions that broadcast over a leading ray axis, in the JAX
 functions' operation order: the all-pairs ``*_ts`` sweeps (rays x prims,
 search only) and the per-winner ``*_hit_one`` recomputes, which stay
 differentiable under autograd. A miss is t = +inf; normals are geometric
-and normalised once, in ``refine_hit``.
+and normalised once, in ``refine_hit`` and ``hit_from_params``.
 
-``hit_from_ids``, ``prefetch_hit_params`` and ``hit_from_params`` (the
-replay path) are not ported yet (ROADMAP A8).
+``hit_from_ids``, ``prefetch_hit_params`` and ``hit_from_params`` serve the
+replay (path-replay backprop): they rebuild a hit, attached to the scene
+tensors, from a winner id in the segment kernel's MegaMeta encoding.
 """
 
 from __future__ import annotations
@@ -265,6 +266,135 @@ def closest_hit_bruteforce(scene, ro, rd, t_min,
                           TRIANGLE)
     return refine_hit(scene, ro, rd, t_min, best.type, best.idx,
                       best.t < INF)
+
+
+def _decode_ids(scene, ids):
+    """MegaMeta hit ids -> (valid, clamped id, primitive type, index within
+    the analytic table; 0 for triangles)."""
+    ns = scene.spheres.radius.shape[0]
+    nb = scene.boxes.mat.shape[0]
+    nc = scene.cylinders.radius.shape[0]
+    valid = ids >= 0
+    i = torch.clamp(ids, min=0)
+    prim_type = torch.where(
+        i < ns, SPHERE,
+        torch.where(i < ns + nb, BOX,
+                    torch.where(i < ns + nb + nc, CYLINDER, TRIANGLE)))
+    prim_idx = torch.where(
+        i < ns, i,
+        torch.where(i < ns + nb, i - ns,
+                    torch.where(i < ns + nb + nc, i - ns - nb, 0)))
+    return valid, i, prim_type, prim_idx
+
+
+def _tri_rows(scene, i):
+    """Original triangle rows of the BVH slots that ids ``i`` name."""
+    tri_index = scene.tri_bvh.tri_index
+    base = (scene.spheres.radius.shape[0] + scene.boxes.mat.shape[0]
+            + scene.cylinders.radius.shape[0])
+    slot = torch.clamp(i - base, 0, tri_index.shape[0] - 1)
+    return torch.clamp(tri_index[slot.long()], min=0)
+
+
+def hit_from_ids(scene, ro, rd, ids, t_min) -> Hit:
+    """Hit record from the segment kernel's winner ids, attached to the
+    scene tensors (replay path).
+
+    ``ids`` (R,) int32 in the MegaMeta encoding (ops/mega.py): -1 miss,
+    [0, ns) sphere, [ns, ns+nb) box, [.., +nc) cylinder, then BVH triangle
+    slots (leaf * 128 + lane), mapped to triangle rows through
+    ``scene.tri_bvh.tri_index``. No search: only the known winner's (t,
+    normal, mat) are recomputed, so d(image)/d(geometry) flows.
+    """
+    valid, i, prim_type, prim_idx = _decode_ids(scene, ids)
+    if scene.triangles.mat.shape[0] and scene.tri_bvh is not None:
+        prim_idx = torch.where(prim_type == TRIANGLE,
+                               _tri_rows(scene, i).to(prim_idx.dtype),
+                               prim_idx)
+    return refine_hit(scene, ro, rd, t_min, prim_type, prim_idx, valid)
+
+
+def prefetch_hit_params(scene, ids) -> dict:
+    """Every id-dependent gather of the replay, done once for all bounces.
+
+    ``ids``: MegaMeta-encoded int32 of any shape. Each returned tensor has
+    the ids' shape in front and stays attached to the scene tensors, so the
+    parameter gradients enter through these gathers (scatter-adds in the
+    backward). A miss gets material 0; indices are clamped into each table.
+    """
+    ns = scene.spheres.radius.shape[0]
+    nb = scene.boxes.mat.shape[0]
+    nc = scene.cylinders.radius.shape[0]
+    valid, i, prim_type, prim_idx = _decode_ids(scene, ids)
+    hp = {"valid": valid, "prim_type": prim_type,
+          "mat": torch.zeros_like(i)}
+
+    def msel(type_id, m_i):
+        hp["mat"] = torch.where(valid & (prim_type == type_id),
+                                m_i.to(i.dtype), hp["mat"])
+
+    sph, box, cyl, tri = (scene.spheres, scene.boxes, scene.cylinders,
+                          scene.triangles)
+    if ns:
+        si = torch.clamp(prim_idx, 0, ns - 1).long()
+        hp["sph_c"] = sph.center[si]
+        hp["sph_r"] = sph.radius[si]
+        msel(SPHERE, sph.mat[si])
+    if nb:
+        bi = torch.clamp(prim_idx, 0, nb - 1).long()
+        hp["box_lo"] = box.bmin[bi]
+        hp["box_hi"] = box.bmax[bi]
+        msel(BOX, box.mat[bi])
+    if nc:
+        ci = torch.clamp(prim_idx, 0, nc - 1).long()
+        hp["cyl_b"] = cyl.base[ci]
+        hp["cyl_a"] = cyl.axis[ci]
+        hp["cyl_r"] = cyl.radius[ci]
+        hp["cyl_rot"] = cyl.rot[ci]
+        msel(CYLINDER, cyl.mat[ci])
+    if tri.mat.shape[0] and scene.tri_bvh is not None:
+        ti = _tri_rows(scene, i).long()
+        hp["tri_v0"] = tri.v0[ti]
+        hp["tri_v1"] = tri.v1[ti]
+        hp["tri_v2"] = tri.v2[ti]
+        msel(TRIANGLE, tri.mat[ti])
+    return hp
+
+
+def hit_from_params(hp, ro, rd, t_min) -> Hit:
+    """Gather-free hit recompute from ``prefetch_hit_params`` output sliced
+    to one bounce: the same results as ``hit_from_ids``."""
+    R = ro.shape[0]
+    dev = ro.device
+    t = torch.full((R,), INF, dtype=torch.float32, device=dev)
+    normal = torch.zeros((R, 3), dtype=torch.float32, device=dev)
+    inner = torch.zeros((R,), dtype=torch.bool, device=dev)
+    valid = hp["valid"]
+    prim_type = hp["prim_type"]
+
+    def blend(type_id, t_i, n_i, inner_i):
+        nonlocal t, normal, inner
+        sel = valid & (prim_type == type_id)
+        t = torch.where(sel, t_i, t)
+        normal = torch.where(sel[..., None], n_i, normal)
+        inner = torch.where(sel, inner_i, inner)
+
+    if "sph_c" in hp:
+        blend(SPHERE, *sphere_hit_one(hp["sph_c"], hp["sph_r"], ro, rd,
+                                      t_min))
+    if "box_lo" in hp:
+        blend(BOX, *box_hit_one(hp["box_lo"], hp["box_hi"], ro, rd, t_min))
+    if "cyl_b" in hp:
+        blend(CYLINDER, *cylinder_hit_one(
+            hp["cyl_b"], hp["cyl_a"], hp["cyl_r"], hp["cyl_rot"], ro, rd,
+            t_min))
+    if "tri_v0" in hp:
+        blend(TRIANGLE, *triangle_hit_one(
+            hp["tri_v0"], hp["tri_v1"], hp["tri_v2"], ro, rd, t_min))
+
+    normal = normal / torch.clamp(_norm(normal, keepdim=True), min=1e-12)
+    return Hit(t=t, normal=normal, mat=hp["mat"], inner=inner & valid,
+               valid=valid)
 
 
 def refine_hit(scene, ro, rd, t_min, prim_type, prim_idx, valid) -> Hit:

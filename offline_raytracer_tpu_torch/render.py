@@ -13,9 +13,11 @@ the scene, never from the device:
   sweep, as ``ops/traverse.pick_tri_hit`` says; without ``use_bvh`` it is
   the brute-force sweep over every primitive.
 
-(The JAX package also leaves the segment route on its CPU backend; the
-port runs the same route on the CPU with the plain versions.)
-``render_image_diff`` is the differentiable single-call render.
+(The JAX package leaves the segment route on its CPU backend; the port
+runs the same route on the CPU with the plain versions.) Under autograd the
+segment route is differentiable through the replay (``replay.py``), as
+``cfg.grad_mode`` says; without a gradient to take it is the plain segment
+call. ``render_image_diff`` is the differentiable single-call render.
 ``render_image_resumable`` and the checkpoint path are not ported yet
 (ROADMAP queue A12).
 """
@@ -32,7 +34,8 @@ from offline_raytracer_tpu_torch.ops import mega
 from offline_raytracer_tpu_torch.ops.camera import generate_rays
 from offline_raytracer_tpu_torch.ops.traverse import (
     make_bvh_occlusion_fn, make_bvh_trace_fn, tri_tables)
-from offline_raytracer_tpu_torch.scene.types import Scene
+from offline_raytracer_tpu_torch.replay import mega_paths_diff, replay_paths
+from offline_raytracer_tpu_torch.scene.types import Scene, float_leaves
 from offline_raytracer_tpu_torch.utils import rng
 
 
@@ -53,20 +56,37 @@ def _mega_active(scene: Scene, cfg: RenderConfig) -> bool:
             and cfg.use_bvh and mega.mega_ok(scene, cfg))
 
 
+def _wants_grad(scene: Scene, ro, rd) -> bool:
+    """Would autograd record a graph through these inputs?"""
+    return torch.is_grad_enabled() and (
+        ro.requires_grad or rd.requires_grad
+        or any(x.requires_grad for _, x in float_leaves(scene)))
+
+
 def _paths_fn(scene: Scene, cfg: RenderConfig,
               tables: mega.MegaTables | None = None):
     """Path-trace callable (ro, rd, keys, collect_stats) -> radiance
     [, alive per bounce]: the segment route when the config and scene
     qualify, else the wavefront. ``tables``: the segment route's
-    ``mega.prepare_tables(scene, cfg)``, built here if None."""
+    ``mega.prepare_tables(scene, cfg)``, built here (without grad) if None.
+
+    On the segment route, stats and renders with no gradient to take are
+    the plain segment call; a differentiated render takes the replay
+    (``grad_mode="replay-value"``) or the kernel's value with the replay's
+    gradient ("kernel-value")."""
     if _mega_active(scene, cfg):
         if tables is None:
-            tables = mega.prepare_tables(scene, cfg)
+            with torch.no_grad():
+                tables = mega.prepare_tables(scene, cfg)
 
         def f(ro, rd, keys, collect_stats=False):
-            return mega.render_paths_mega(scene, cfg, ro, rd, keys,
-                                          collect_stats=collect_stats,
-                                          tables=tables)
+            if collect_stats or not _wants_grad(scene, ro, rd):
+                return mega.render_paths_mega(scene, cfg, ro, rd, keys,
+                                              collect_stats=collect_stats,
+                                              tables=tables)
+            if cfg.grad_mode == "replay-value":
+                return replay_paths(scene, cfg, ro, rd, keys, tables)
+            return mega_paths_diff(scene, cfg, ro, rd, keys, tables)
         return f
 
     trace_fn, occl_fn = _trace_builder(scene, cfg)
@@ -156,15 +176,9 @@ def render_image_diff(scene: Scene, cfg: RenderConfig) -> torch.Tensor:
     rendering); the JAX package's ``render_image_jnp``.
 
     Returns an (H, W, 3) tensor, row 0 = top, with autograd attached to
-    the scene tensors that require grad. Gradients flow through the
-    wavefront route: configure one (``traversal`` "cull",
-    "packet" or "jnp", or ``use_pallas=False``), as the JAX config asks.
-    The segment route's gradient (the replay) is not ported yet.
+    the scene tensors that require grad, on whichever route the config
+    and scene take (``_paths_fn``).
     """
-    if _mega_active(scene, cfg):
-        raise NotImplementedError(
-            "gradients of the segment route need the replay (ROADMAP "
-            "queue A8); set traversal to cull, packet or jnp")
     n_pixels = cfg.width * cfg.height
     pixel_ids = torch.arange(n_pixels, dtype=torch.int32,
                              device=scene.device)

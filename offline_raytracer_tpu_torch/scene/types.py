@@ -30,6 +30,34 @@ class TensorTable:
             for f in dataclasses.fields(self)})
 
 
+def float_leaves(table) -> list:
+    """[(dotted path, tensor)] of every floating-point tensor of a table
+    and of the tables nested in it, in field order."""
+    out = []
+    for f in dataclasses.fields(table):
+        x = getattr(table, f.name)
+        if isinstance(x, torch.Tensor) and x.is_floating_point():
+            out.append((f.name, x))
+        elif isinstance(x, TensorTable):
+            out += [(f"{f.name}.{p}", y) for p, y in float_leaves(x)]
+    return out
+
+
+def with_leaves(table, leaves: dict):
+    """``table`` with the tensors at the dotted paths of ``leaves``
+    replaced (the inverse of ``float_leaves``)."""
+    direct, nested = {}, {}
+    for path, x in leaves.items():
+        head, _, rest = path.partition(".")
+        if rest:
+            nested.setdefault(head, {})[rest] = x
+        else:
+            direct[head] = x
+    for head, sub in nested.items():
+        direct[head] = with_leaves(getattr(table, head), sub)
+    return dataclasses.replace(table, **direct)
+
+
 @dataclasses.dataclass(frozen=True)
 class Materials(TensorTable):
     diffuse: torch.Tensor       # (M, 3) Kd

@@ -13,8 +13,14 @@ EPS = 1e-8
 
 
 def normalize(a, eps: float = EPS):
-    """Safe normalize: a / max(|a|, eps)."""
-    n = torch.sqrt(torch.sum(a * a, dim=-1, keepdim=True))
+    """Safe normalize: a / max(|a|, eps).
+
+    The length is ``torch.linalg.vector_norm``, a reduction kernel, and not
+    ``torch.sqrt`` of the summed squares: on the CPU, ``torch.sqrt`` of
+    more than 2048 values is cut into chunks for MKL's vector library
+    across the intra-op threads, and one test run got roots good to ~11
+    bits from the second thread's chunk (ROADMAP C)."""
+    n = torch.linalg.vector_norm(a, dim=-1, keepdim=True)
     return a / torch.clamp(n, min=eps)
 
 

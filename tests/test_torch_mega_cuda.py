@@ -1,4 +1,5 @@
-"""The CUDA segment kernel vs its plain version on the card.
+"""The CUDA segment kernel vs its plain version on the card, and the two
+gradient routes through it.
 
 Marked ``cuda``: it needs an NVIDIA GPU and nvcc, and skips without them.
 It imports no jax, so it runs on a card machine without jax:
@@ -52,3 +53,33 @@ def test_kernel_matches_plain(device, recipe, nee):
         assert (k_rad[3:] != p_rad[3:]).mean() < 0.002
         assert_close(p_rad[0:3].T, k_rad[0:3].T)
         state = p_state
+
+
+@pytest.mark.cuda
+def test_grad_modes_agree(device):
+    """kernel-value and replay-value gradients (albedo, mesh v0) of one
+    render on the card: the same replay of the same kernel records, so
+    they agree to rtol 1e-4; each step makes one set of segment launches
+    with records."""
+    import dataclasses
+
+    from offline_raytracer_tpu_torch.render import render_block
+
+    scene = mesh_recipe(SceneBuilder).build(64, 64, device=device)
+    cfg = RenderConfig(width=64, height=64, spp=1, max_bounces=6,
+                       enable_dof=False)
+    ids = torch.arange(4096, device=device, dtype=torch.int32)
+    grads = []
+    for mode in ("kernel-value", "replay-value"):
+        kd = scene.materials.diffuse.clone().requires_grad_(True)
+        v0 = scene.triangles.v0.clone().requires_grad_(True)
+        sc = dataclasses.replace(
+            scene, materials=dataclasses.replace(scene.materials, diffuse=kd),
+            triangles=dataclasses.replace(scene.triangles, v0=v0))
+        before = mega.KERNEL_LAUNCHES
+        loss = render_block(sc, cfg.replace(grad_mode=mode), ids, 0, 1).mean()
+        grads.append(torch.autograd.grad(loss, (kd, v0)))
+        assert mega.KERNEL_LAUNCHES - before == len(mega.segment_plan(cfg)[0])
+    for a, b in zip(*grads):
+        assert torch.isfinite(a).all() and a.abs().max() > 0
+        torch.testing.assert_close(b, a, rtol=1e-4, atol=1e-7)

@@ -36,12 +36,3 @@ def test_wavefront_matches_jax(name):
     np.testing.assert_array_equal(t_counts, counts)
     assert counts[0] > 0 and rad.mean() > 0
     assert_close(rad, t_rad)
-
-
-def test_replay_is_refused_until_ported():
-    from offline_raytracer_tpu_torch.integrator import trace_paths
-
-    with pytest.raises(NotImplementedError, match="A8"):
-        trace_paths(None, None, None, torch.zeros((1, 3)),
-                    torch.zeros((1, 3)), torch.zeros((1, 2)),
-                    replay=(None, None))

@@ -169,9 +169,3 @@ def test_gradient_matches_jax_grad_and_fd(analytic_scene):
     assert np.isfinite(g) and g > 0
     np.testing.assert_allclose(g, g_ref, rtol=1e-3)
     np.testing.assert_allclose(g, fd, rtol=0.08)
-
-
-def test_render_image_diff_refuses_the_segment_route(scenes):
-    with pytest.raises(NotImplementedError, match="A8"):
-        port_render.render_image_diff(scenes["mesh"][1],
-                                      RenderConfig(**SMALL))

@@ -280,3 +280,105 @@ def wavefront_case(recipe, R, traversal="cull", **cfg_kw):
         occl_fn=t_occl)
     return {"ref": (np.asarray(rad), np.asarray(counts)),
             "got": (t_rad.numpy(), t_counts.numpy())}
+
+
+def replay_case(recipe, R, records=True, **cfg_kw):
+    """R camera rays of a recipe's scene with (if ``records``) the JAX
+    megakernel's records (interpret mode), and the same scene, config,
+    rays and keys for the port: {"jcfg", "cfg", "js", "ts", "keys",
+    "tkeys", "ro", "rd", "ids",
+    "vis", "rad", "t_ro", "t_rd", "t_ids", "t_vis"}: the JAX side's arrays
+    and the port's tensors (``t_*``: the same values as tensors)."""
+    import jax.numpy as jnp
+    import torch
+
+    from offline_raytracer_tpu.config import RenderConfig as JaxConfig
+    from offline_raytracer_tpu.ops import mega as jax_mega
+    from offline_raytracer_tpu.ops.camera import generate_rays
+    from offline_raytracer_tpu.scene.build import SceneBuilder
+    from offline_raytracer_tpu.utils import rng as jax_rng
+    from offline_raytracer_tpu_torch.config import RenderConfig
+    from offline_raytracer_tpu_torch.convert import scene_from_arrays
+    from offline_raytracer_tpu_torch.utils import rng
+
+    base = dict(width=64, height=64, spp=1, max_bounces=4, enable_dof=False)
+    base.update(cfg_kw)
+    jcfg = JaxConfig(traversal="jnp", **base)
+    js = recipe(SceneBuilder).build(64, 64)
+    ids = np.arange(R, dtype=np.int32) * 5 % (64 * 64)
+    keys = jax_rng.pixel_sample_keys(
+        jax_rng.render_key(jcfg.seed), jnp.asarray(ids),
+        jnp.zeros((R,), jnp.int32))
+    ro, rd = generate_rays(js.camera, jcfg, jnp.asarray(ids), keys)
+    tkeys = rng.pixel_sample_keys(rng.render_key(jcfg.seed),
+                                  torch.from_numpy(ids),
+                                  torch.zeros((R,), dtype=torch.int32))
+    t = lambda x: torch.from_numpy(np.array(x))  # noqa: E731
+    c = dict(jcfg=jcfg, cfg=RenderConfig(**base), js=js,
+             ts=scene_from_arrays(jax_scene_arrays(js)), keys=keys,
+             tkeys=tkeys, ro=ro, rd=rd, t_ro=t(ro), t_rd=t(rd))
+    if records:
+        rad, hit_ids, vis = jax_mega.render_paths_mega(
+            js, jcfg, ro, rd, keys, interpret=True, collect_records=True)
+        c.update(ids=hit_ids, vis=vis, rad=np.asarray(rad),
+                 t_ids=t(hit_ids), t_vis=t(vis))
+    return c
+
+
+def check_hit_helpers(c):
+    """hit_from_ids, and prefetch_hit_params + hit_from_params, vs the JAX
+    functions on a replay_case's recorded winner ids: the same ops in the
+    same order, so t and the normal agree to float32 rounding (rtol 1e-5,
+    atol 1e-6) and the rest exactly."""
+    import jax
+    import jax.numpy as jnp
+
+    from offline_raytracer_tpu.ops import intersect as jax_isect
+    from offline_raytracer_tpu_torch.ops import intersect
+
+    js, ts, t_min = c["js"], c["ts"], c["jcfg"].t_min
+
+    def check(ref, got):
+        for f in ("t", "normal"):
+            np.testing.assert_allclose(getattr(got, f).detach().numpy(),
+                                       np.asarray(getattr(ref, f)),
+                                       rtol=1e-5, atol=1e-6, err_msg=f)
+        for f in ("mat", "inner", "valid"):
+            np.testing.assert_array_equal(getattr(got, f).numpy(),
+                                          np.asarray(getattr(ref, f)),
+                                          err_msg=f)
+
+    check(jax_isect.hit_from_ids(js, c["ro"], c["rd"], c["ids"][0], t_min),
+          intersect.hit_from_ids(ts, c["t_ro"], c["t_rd"], c["t_ids"][0],
+                                 t_min))
+    j_hp = jax_isect.prefetch_hit_params(js, jnp.asarray(c["ids"]))
+    t_hp = intersect.prefetch_hit_params(ts, c["t_ids"])
+    assert sorted(j_hp) == sorted(t_hp)
+    for k in j_hp:
+        np.testing.assert_array_equal(t_hp[k].detach().numpy(),
+                                      np.asarray(j_hp[k]), err_msg=k)
+    check(jax_isect.hit_from_params(js, jax.tree.map(lambda x: x[0], j_hp),
+                                    c["ro"], c["rd"], t_min),
+          intersect.hit_from_params({k: v[0] for k, v in t_hp.items()},
+                                    c["t_ro"], c["t_rd"], t_min))
+
+
+def check_replay(c, **cfg_kw):
+    """trace_paths(replay=the JAX records) on both sides, with ``cfg_kw``
+    changed in both configs: equal alive counts, radiance within
+    assert_close."""
+    import jax
+
+    from offline_raytracer_tpu.integrator import trace_paths as jax_trace
+    from offline_raytracer_tpu_torch.integrator import trace_paths
+
+    jcfg, cfg = c["jcfg"].replace(**cfg_kw), c["cfg"].replace(**cfg_kw)
+    rad, counts = jax.jit(lambda s, ro, rd, k, i, v: jax_trace(
+        s, jcfg, None, ro, rd, k, collect_stats=True, replay=(i, v)))(
+        c["js"], c["ro"], c["rd"], c["keys"], c["ids"], c["vis"])
+    t_rad, t_counts = trace_paths(
+        c["ts"], cfg, None, c["t_ro"], c["t_rd"], c["tkeys"],
+        collect_stats=True, replay=(c["t_ids"], c["t_vis"]))
+    np.testing.assert_array_equal(t_counts.numpy(), np.asarray(counts))
+    assert counts[0] > 0 and rad.mean() > 0
+    assert_close(np.asarray(rad), t_rad.numpy())

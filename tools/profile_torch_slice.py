@@ -2,6 +2,7 @@
 """Where the time of one sample of the port's slice goes, on one GPU.
 
     python3 tools/profile_torch_slice.py [--samples N] [--traversal ROUTE]
+    python3 tools/profile_torch_slice.py --grad [--samples N]
 
 Builds the bunny stand-in of chip_smoke.py (69,451 triangles) and renders
 512x512 at 8 bounces, one sample per launch, through ``--traversal``:
@@ -16,6 +17,13 @@ Builds the bunny stand-in of chip_smoke.py (69,451 triangles) and renders
   device), the time of the queries split into the dense cull (cull route
   only) and the kernel, the rest being the shading glue; then the same
   profiler table.
+- ``--grad``: the gradient step of ``chip_smoke.py`` phase 8 (the first
+  65,536 pixels of the tile order, 1 spp, replay-value, gradients with
+  respect to the albedo and the mesh's v0). Prints the wall time per step;
+  the split of a step into the segment launches with records, the replay's
+  forward and the backward (CUDA events between the parts, averaged over
+  ``--samples`` steps); the peak device memory of a step; then the
+  profiler table over ``--samples`` steps.
 
 Needs CUDA.
 """
@@ -117,6 +125,88 @@ def wavefront(scene, cfg, ids, samples):
                   f"{samples} samples")
 
 
+def grad_breakdown(scene, cfg, ids, steps):
+    import dataclasses
+
+    import chip_smoke
+    import torch
+    from offline_raytracer_tpu_torch.integrator import trace_paths
+    from offline_raytracer_tpu_torch.ops import mega
+    from offline_raytracer_tpu_torch.ops.camera import generate_rays
+    from offline_raytracer_tpu_torch.ops.intersect import prefetch_hit_params
+    from offline_raytracer_tpu_torch.utils import rng
+
+    gcfg = cfg.replace(spp=1, grad_mode="replay-value")
+    gids = ids[:chip_smoke.GRAD_PIXELS]
+    chip_smoke.grad_step(scene, gcfg, gids, "replay-value")    # warm up
+    torch.cuda.synchronize()
+    t0 = time.time()
+    for _ in range(steps):
+        chip_smoke.grad_step(scene, gcfg, gids, "replay-value")
+    torch.cuda.synchronize()
+    print(f"wall per gradient step: {(time.time() - t0) / steps * 1e3:.3f} "
+          f"ms ({steps} steps, one sync)")
+
+    # the step's parts, as render_block runs them for sample 0
+    kd = scene.materials.diffuse.clone().requires_grad_(True)
+    v0 = scene.triangles.v0.clone().requires_grad_(True)
+    sc = dataclasses.replace(
+        scene, materials=dataclasses.replace(scene.materials, diffuse=kd),
+        triangles=dataclasses.replace(scene.triangles, v0=v0))
+    keys = rng.pixel_sample_keys(rng.render_key(gcfg.seed, gids.device),
+                                 gids, torch.zeros_like(gids))
+    ro, rd = generate_rays(scene.camera, gcfg, gids, keys)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    parts = [0.0, 0.0, 0.0]
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ev[0].record()
+        with torch.no_grad():
+            tables = mega.prepare_tables(sc, gcfg)
+            _, hit_ids, vis, _ = mega.render_paths_mega(
+                sc, gcfg, ro, rd, keys, collect_records=True, tables=tables)
+        ev[1].record()
+        rad = trace_paths(sc, gcfg, None, ro, rd, keys, replay=(hit_ids, vis))
+        ev[2].record()
+        torch.autograd.grad(rad.mean(), (kd, v0))
+        ev[3].record()
+        torch.cuda.synchronize()
+        for i in range(3):
+            parts[i] += ev[i].elapsed_time(ev[i + 1]) / steps
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    print(f"gradient step split (CUDA events, {steps} steps): segment "
+          f"launches with records {parts[0]:.3f} ms, replay forward "
+          f"{parts[1]:.3f} ms, backward {parts[2]:.3f} ms; peak device "
+          f"memory {peak:.1f} MiB")
+
+    # the backward of each differentiated gather alone, at the step's
+    # index shapes (all bounces' recorded winners at once)
+    base = (scene.spheres.radius.shape[0] + scene.boxes.mat.shape[0]
+            + scene.cylinders.radius.shape[0])
+    slot = torch.clamp(hit_ids - base, 0,
+                       scene.tri_bvh.tri_index.shape[0] - 1).long()
+    gathers = {
+        "albedo[material]": (scene.materials.diffuse, prefetch_hit_params(
+            scene, hit_ids)["mat"].long()),
+        "v0[triangle]": (scene.triangles.v0, torch.clamp(
+            scene.tri_bvh.tri_index[slot], min=0).long())}
+    for name, (table, idx) in gathers.items():
+        x = table.detach().clone().requires_grad_(True)
+        out = x[idx]
+        g = torch.ones_like(out)
+        ms = chip_smoke.time_ms(
+            lambda: torch.autograd.grad(out, x, g, retain_graph=True), 5)
+        print(f"  backward of {name} ({tuple(idx.shape)} indices into "
+              f"{x.shape[0]} rows, {int(torch.unique(idx).numel())} "
+              f"distinct): {ms:.3f} ms")
+
+    def run():
+        for _ in range(steps):
+            chip_smoke.grad_step(scene, gcfg, gids, "replay-value")
+    profile_table(run, f"{steps} gradient steps")
+
+
 def main() -> int:
     import torch
 
@@ -132,6 +222,8 @@ def main() -> int:
     ap.add_argument("--samples", type=int, default=4)
     ap.add_argument("--traversal", default="mega",
                     choices=("mega", "cull", "packet"))
+    ap.add_argument("--grad", action="store_true",
+                    help="profile the gradient step instead")
     args = ap.parse_args()
 
     dev = torch.device("cuda", 0)
@@ -140,6 +232,9 @@ def main() -> int:
                        enable_dof=False, ray_batch=512 * 512,
                        traversal=args.traversal)
     ids = torch.from_numpy(tile_pixel_ids(512, 512)).to(dev)
+    if args.grad:
+        grad_breakdown(scene, cfg, ids, args.samples)
+        return 0
     if args.traversal != "mega":
         wavefront(scene, cfg, ids, args.samples)
         return 0
