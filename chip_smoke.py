@@ -13,7 +13,10 @@ Phases, each printing its own line; any failure exits non-zero:
    stand-in (every 16th ray of the tile order, so it spans the whole image
    and the mesh; its bounce-0 segment, which must hit triangles, and its fused
    tail) and of a scene with cylinders and box/cylinder lights; then the
-   analytic scene's render against the committed golden image;
+   analytic scene's render against the committed golden image; then the
+   four segments of one full-size sample (262,144 rays), each run at one
+   lane per ray and at the lanes per ray ``mega.group_size`` picks, which
+   must give bitwise the same outputs, with each one's kernel ms;
 4. the slice: ``render_block_stats`` over the image of the bunny stand-in
    (a procedural mesh of 69,451 triangles, as many as bunny.ply, in the
    bunny configuration) at 512x512, 32 spp, 8 bounces, DOF off, one launch
@@ -50,7 +53,11 @@ Phases, each printing its own line; any failure exits non-zero:
    samples must be below the first step's, and the albedo nearer the
    truth.
 
-The line before the last is the kernels' JSON record; the last line is
+The line before the last is the kernels' JSON record (each kernel's
+launches on its route, its error and time against its plain version, its
+bound on this card from the bytes and operations of the same inputs, and
+the library call that computes the same function: none does); the last
+line is
 ``{"ok": true, "device": {...}}``. Without CUDA it exits 1 and prints no
 result.
 """
@@ -59,6 +66,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -79,6 +87,18 @@ INV_STEPS = 8             # Adam steps of the inverse-rendering phase
 INV_SPP = 4               # samples per pixel of each of its steps
 WRONG_ALBEDO = (0.1, 0.8, 0.8)
 KERNELS = ("mega", "traverse_cull", "traverse_packet")
+# the card's peaks (NVIDIA H100 SXM data sheet): device memory bytes/s and
+# float32 FLOP/s outside the tensor cores
+PEAK_BYTES = 3.35e12
+PEAK_FLOPS = 67e12
+# float32 operations each step needs at least: a slab test of one box
+# (6 subtractions, 6 products, 6 min/max and 2 compares), the plane part
+# of a triangle test (two 3-term dot products, one division, 2 compares),
+# the shading of one bounce (BSDF sample, evaluation and pdf, twice with
+# NEE: a few hundred)
+SLAB_FLOP = 20
+TRI_FLOP = 13
+SHADE_FLOP = 300
 
 
 def log(msg):
@@ -127,6 +147,91 @@ def capture_segments(scene, cfg, pixel_ids):
     return seen
 
 
+def bound(nbytes, flops):
+    """(bound_ms, bound_by): the least time this card could take to move
+    nbytes once and do flops float32 operations."""
+    by_bytes = nbytes / PEAK_BYTES * 1e3
+    by_ops = flops / PEAK_FLOPS * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops,
+                                                           "operations")
+
+
+def segment_bound(inputs, rad):
+    """Bound of one segment launch: every ray's state read and written and
+    its radiance and records written; the tables read once; for each
+    ray-bounce live at its start, the uniforms the kernel reads there (4
+    planes: roulette and BSDF sample) and, with NEE, the light sample (10
+    planes). Operations from this run's records (per live ray and bounce,
+    the shading and the two root slab tests of each query; per triangle
+    hit, a walk to the leaf's depth, the leaf's sub-boxes and one sub-box's
+    triangles)."""
+    import torch
+    from offline_raytracer_tpu_torch.ops import bvh
+
+    state, _, _, tables, seg = inputs
+    nf = seg.n_fused
+    alive_in = state[10:11] > 0.5
+    live = torch.cat([alive_in, rad[3 + 2 * nf:3 + 3 * nf - 1] > 0.5], 0)
+    n_live = int(live.sum())
+    live_planes = 4 + (10 if seg.do_nee else 0)
+    nbytes = 4 * (2 * state.numel() + rad.numel() + n_live * live_planes
+                  + tables.consts.numel() + tables.tri_lm.numel()
+                  + tables.sub.numel() + tables.tri_mat.numel()
+                  + tables.nodes.numel())
+    tri = int(((rad[3:3 + nf] >= tables.meta.tri_base) & live).sum())
+    depth = max(tables.n_leaves.bit_length() - 1, 0)
+    flops = (n_live * (SHADE_FLOP + 2 * 2 * SLAB_FLOP)
+             + tri * ((2 * depth + bvh.SUB) * SLAB_FLOP
+                      + bvh.SUB_TRIS * TRI_FLOP))
+    return bound(nbytes, flops)
+
+
+def group_times(inputs, groups, reps=5):
+    """{G: kernel ms} of one segment's inputs at each lanes-per-ray G;
+    raises unless every G gives bitwise the same outputs as G = 1."""
+    import torch
+    from offline_raytracer_tpu_torch.ops import mega
+
+    state, u, ls, tables, seg = inputs
+    ref = mega.mega_segment_cuda(state, u, ls, tables, seg, group=1)
+    out = {}
+    for g in groups:
+        got = mega.mega_segment_cuda(state, u, ls, tables, seg, group=g)
+        for name, r, k in zip(("state", "rad"), ref, got):
+            differ = int((r.view(torch.int32) != k.view(torch.int32)).sum())
+            if differ:
+                raise AssertionError(
+                    f"segment b={seg.b_start}: G={g} {name} differs from "
+                    f"G=1 in {differ} values")
+        out[g] = time_ms(lambda: mega.mega_segment_cuda(
+            state, u, ls, tables, seg, group=g), reps)
+    return out
+
+
+def ptxas_summary(log):
+    """'kernel: registers, stack frame and spills' of each kernel entry in
+    an nvcc -Xptxas -v log."""
+    rows, entry, props, frame = [], None, None, ""
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", ln)
+        if m:
+            entry, frame = m.group(1), ""
+            continue
+        m = re.search(r"Function properties for (\w+)", ln)
+        if m:
+            props = m.group(1)
+            continue
+        if "stack frame" in ln and props == entry:
+            frame = ln.strip()
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and entry:
+            g = re.search(r"mega_kernelILi(\d+)E", entry)
+            name = f"mega_kernel<G={g.group(1)}>" if g else entry
+            rows.append(f"{name}: {m.group(1)} registers, {frame}")
+            entry = None
+    return rows
+
+
 def time_ms(fn, reps):
     import torch
 
@@ -155,6 +260,7 @@ def compare_segment(name, inputs):
     k_state, k_rad = mega.mega_segment_cuda(state, u, ls, tables, seg)
     p_state, p_rad = mega.mega_segment_plain(state, u, ls, tables, seg)
     torch.cuda.synchronize()
+    b_ms, b_by = segment_bound(inputs, k_rad)
     k_rad, p_rad = k_rad.cpu().numpy(), p_rad.cpu().numpy()
     alive_in = state[10].cpu().numpy() > 0.5
     k_alive = k_rad[3 + 2 * nf:] > 0.5
@@ -179,11 +285,14 @@ def compare_segment(name, inputs):
                    10)
     p_ms = time_ms(lambda: mega.mega_segment_plain(state, u, ls, tables, seg),
                    2)
+    g = mega.group_size(seg, state.shape[1])
     log(f"  {name}: Rp={state.shape[1]} nf={nf} live={n_live} "
         f"triangle_hits={tri_hits} records_differ={n_differ} "
         f"alive kernel={k_count.tolist()} plain={p_count.tolist()} "
-        f"max_abs_err={err:.3e} kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f}")
-    return {"err": err, "ms": k_ms, "plain_ms": p_ms, "tri_hits": tri_hits}
+        f"max_abs_err={err:.3e} kernel_ms={k_ms:.4f} (G={g}) "
+        f"plain_ms={p_ms:.4f} bound_ms={b_ms:.4f} ({b_by})")
+    return {"err": err, "ms": k_ms, "plain_ms": p_ms, "tri_hits": tri_hits,
+            "bound_ms": b_ms, "bound_by": b_by, "group": g}
 
 
 def capture_queries(scene, cfg, pixel_ids):
@@ -230,6 +339,17 @@ def compare_query(name, query, t_min):
     n_live = max(int(live.sum()), 1)
     p_t, p_s = (x.cpu().numpy() for x in traverse.tri_hit_plain(
         tables, ro, rd, t_min, tf, any_hit))
+    # the bound: rays, bounds and tables read once, (t, slot) written
+    # once; per live ray the root's two slab tests, per hit a walk to a
+    # leaf and its 128 triangles
+    R = ro.shape[0]
+    nbytes = 4 * (ro.numel() + rd.numel() + (0 if tf is None else R)
+                  + tables.tri.numel() + tables.nodes.numel()
+                  + tables.leaf_bounds.numel() + 2 * R)
+    depth = max(tables.n_leaves.bit_length() - 1, 0)
+    hits = int((p_s >= 0).sum())
+    b_ms, b_by = bound(nbytes, n_live * 2 * SLAB_FLOP + hits * (
+        2 * depth * SLAB_FLOP + 128 * TRI_FLOP))
     p_ms = time_ms(lambda: traverse.tri_hit_plain(
         tables, ro, rd, t_min, tf, any_hit), 2)
     inputs = traverse_cull.cull_inputs(tables, ro, rd, tf)
@@ -265,9 +385,11 @@ def compare_query(name, query, t_min):
             f"hits kernel={int((k_s >= 0).sum())} plain="
             f"{int((p_s >= 0).sum())} differ={int(differ.sum())} "
             f"max_abs_err={err:.3e} kernel_ms={k_ms:.4f} "
-            f"query_ms={q_ms:.4f} plain_ms={p_ms:.4f}")
+            f"query_ms={q_ms:.4f} plain_ms={p_ms:.4f} "
+            f"bound_ms={b_ms:.4f} ({b_by})")
         out[kname] = {"err": err, "ms": k_ms, "query_ms": q_ms,
-                      "plain_ms": p_ms, "hits": int((p_s >= 0).sum()),
+                      "plain_ms": p_ms, "hits": hits,
+                      "bound_ms": b_ms, "bound_by": b_by,
                       "agreement": 1.0 - float(differ.sum()) / n_live}
     return out
 
@@ -359,7 +481,9 @@ def wavefront_phases(scene, cfg, order, card):
         "launches": launches[k.split("_")[1]],
         "agreement": min(r[k]["agreement"] for r in res),
         "max_abs_err": max(r[k]["err"] for r in res),
-        "ms": res[0][k]["ms"], "plain_ms": res[0][k]["plain_ms"]}
+        "ms": res[0][k]["ms"], "plain_ms": res[0][k]["plain_ms"],
+        "bound_ms": res[0][k]["bound_ms"], "bound_by": res[0][k]["bound_by"],
+        "library_ms": None}
         for k in ("traverse_cull", "traverse_packet")]
 
 
@@ -557,12 +681,10 @@ def main() -> int:
     # ---- phase 2: build the kernels from this checkout, one nvcc each
     t0 = time.time()
     for name, info in _kernels.build_all(KERNELS).items():
-        regs = [ln.strip() for ln in info["log"].splitlines()
-                if "registers" in ln or "spill" in ln]
         log(f"phase 2 build: {name}.cu -> "
             f"{os.path.relpath(info['path'], HERE)} in "
             f"{info['seconds']:.2f} s (cached={info['cached']}); "
-            + " | ".join(regs))
+            + " | ".join(ptxas_summary(info["log"])))
     log(f"  all builds done in {time.time() - t0:.2f} s")
 
     # ---- phase 3: kernel vs plain version on the main path's inputs
@@ -592,6 +714,23 @@ def main() -> int:
     assert_close(golden.reshape(-1, 3), img.reshape(-1, 3))
     log(f"  analytic 24x24 16 spp vs tests/golden: max abs diff "
         f"{np.abs(golden - img).max():.3e}")
+    segments = []
+    for s in capture_segments(scene, cfg, order):
+        state, seg = s[0], s[4]
+        g = mega.group_size(seg, state.shape[1])
+        ms = group_times(s, sorted({1, g}))
+        b_ms, b_by = segment_bound(s, mega.mega_segment_cuda(*s)[1])
+        live = int((state[10] > 0.5).sum())
+        log(f"  full-size segment b={seg.b_start} nf={seg.n_fused}: {live} "
+            f"live of {state.shape[1]}, G={g} {ms[g]:.4f} ms, G=1 "
+            f"{ms[1]:.4f} ms, outputs bitwise equal, bound {b_ms:.4f} ms "
+            f"({b_by}) [{card}]")
+        segments.append({"b": seg.b_start, "nf": seg.n_fused, "live": live,
+                         "group": g, "ms": ms[g], "ms_g1": ms[1],
+                         "bound_ms": b_ms, "bound_by": b_by})
+    log(f"  full-size sample: segment kernels "
+        f"{sum(x['ms'] for x in segments):.4f} ms at the rule's G, "
+        f"{sum(x['ms_g1'] for x in segments):.4f} ms at G=1 [{card}]")
 
     # ---- phase 4: the slice through the kernel
     per_sample = len(mega.segment_plan(cfg)[0])
@@ -635,8 +774,11 @@ def main() -> int:
         "replaces": "offline_raytracer_tpu/ops/mega.py:418",
         "launches": launches, "grad_launches": grad_launches,
         "max_abs_err": max(r["err"] for r in results),
-        "ms": results[0]["ms"], "plain_ms": results[0]["plain_ms"]}]
-        + wave}
+        "ms": results[0]["ms"], "plain_ms": results[0]["plain_ms"],
+        "bound_ms": results[0]["bound_ms"],
+        "bound_by": results[0]["bound_by"], "library_ms": None,
+        "group": {x["b"]: x["group"] for x in segments},
+        "segments": segments}] + wave}
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

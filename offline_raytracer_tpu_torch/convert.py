@@ -4,9 +4,11 @@
 their pytree paths as ``jax.tree_util.keystr`` writes them (for example
 ``.materials.diffuse`` or ``.tri_bvh.planes``; the leading dot is
 optional), and returns the port's ``Scene`` with the same values, shapes
-and dtypes on ``device``. The caller flattens the JAX scene, so this
-package needs no jax. The BVH's static ``m_occ`` and ``n_leaves`` are not
-pytree leaves; they are recovered from the leaf bounds.
+and dtypes on ``device`` (the card unless ``device="cpu"`` is passed).
+The caller flattens the JAX scene, so this package needs no jax. The BVH's
+static ``m_occ`` and ``n_leaves`` are not pytree leaves; they are
+recovered from the leaf bounds. The sub-leaf boxes, which the JAX BVH does
+not hold, are built here from the triangles the BVH was built from.
 """
 
 from __future__ import annotations
@@ -16,10 +18,12 @@ import dataclasses
 import numpy as np
 import torch
 
-from offline_raytracer_tpu_torch.ops.bvh import TriBVH, heap_leaf_count
+from offline_raytracer_tpu_torch.ops.bvh import (
+    TriBVH, heap_leaf_count, sub_bounds_rows)
 from offline_raytracer_tpu_torch.ops.lights import AreaLights
 from offline_raytracer_tpu_torch.scene.types import (
-    Boxes, Camera, Cylinders, Materials, Scene, Spheres, Triangles)
+    Boxes, Camera, Cylinders, Materials, Scene, Spheres, Triangles,
+    scene_device)
 
 _TABLES = {
     "materials": Materials, "spheres": Spheres, "boxes": Boxes,
@@ -28,8 +32,9 @@ _TABLES = {
 }
 
 
-def scene_from_arrays(arrays: dict, device="cpu") -> Scene:
+def scene_from_arrays(arrays: dict, device="cuda") -> Scene:
     """{pytree path: np.ndarray} of a JAX Scene -> the port's Scene."""
+    device = scene_device(device)
     tree: dict = {}
     for key, value in arrays.items():
         parts = key.lstrip(".").split(".")
@@ -50,7 +55,11 @@ def scene_from_arrays(arrays: dict, device="cpu") -> Scene:
     if bvh is not None:
         lb = bvh["leaf_bounds"]
         m_occ = int(torch.isfinite(lb[0]).sum())
-        bvh = TriBVH(**bvh, n_leaves=heap_leaf_count(m_occ), m_occ=m_occ)
+        tri = kw["triangles"]
+        sub = sub_bounds_rows(bvh["tri_index"].numpy(), tri.v0.numpy(),
+                              tri.v1.numpy(), tri.v2.numpy())
+        bvh = TriBVH(**bvh, sub_bounds=torch.from_numpy(sub),
+                     n_leaves=heap_leaf_count(m_occ), m_occ=m_occ)
     scene = Scene(**kw, ambient=tree.pop("ambient"),
                   mat_to_light=tree.pop("mat_to_light"), tri_bvh=bvh)
     if tree:

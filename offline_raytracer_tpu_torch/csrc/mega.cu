@@ -10,53 +10,77 @@
 // The plain PyTorch version with the same contract is
 // offline_raytracer_tpu_torch/ops/mega.py::mega_segment_plain.
 //
-// What bounds it on this card: not bytes. A bunny-sized mesh's coefficient
-// table is 12 x 544 x 128 x 4 B ~= 3.3 MB and stays resident in the 50 MB
-// L2; the ray state is ~100 B per ray per bounce. The cost is latency of
-// the dependent loads of a tree walk and warp divergence: each ray walks
-// its own path through the tree, visits its own leaves and dies at its own
-// bounce.
-//
-// What the design does about it, simply for now:
-// - one thread per ray, rays in the host's coherence-sorted order, so a
-//   warp's rays start near each other and walk similar subtrees;
-// - the scene's small tables (46 x 128 floats of spheres, boxes, cylinders,
-//   materials and light pdfs) are staged once per block in shared memory;
-// - triangles are walked per thread down the implicit heap (children of
-//   node i at 2i+1 and 2i+2, leaves from n_leaves - 1 on), nearer child
-//   first, with a small local stack and pruning against the current best;
-//   each visited leaf tests its 128 triangles with the 12 affine-
-//   barycentric coefficients, read as three float4 loads per triangle and
-//   only as far as each early reject allows;
-// - the fused tail is a per-thread loop over bounces that stops doing work
-//   when the ray dies.
-// Not yet: wgmma, TMA, packet traversal, persistent threads.
+// What bounds it on this card. A bounce-0 segment of 262,144 rays moves
+// ~48 MB of ray planes (184 B per ray in and out) and ~4 MB of scene
+// tables: ~15.5 us at 3.35 TB/s. Its arithmetic is data-dependent, at
+// least ~20 slab tests and a leaf's worth of triangle tests per query, two
+// queries per live ray: ~1.6 GFLOP, ~25 us at 67 TFLOP/s. The first design
+// (one thread per ray) took ~52 ms for the four segments of a sample,
+// about 0.2% of that: it was bound by the latency of each ray's
+// long chain of dependent loads, not by bytes or operations. What this
+// design does about each cause:
+// 1. Few live rays underfilled the card (the fused tail's ~43k live rays
+//    sat in ~1 block per SM). A group of G lanes (G in {1, 2, 4, 8, 16,
+//    32}, a template parameter; the wrapper picks it per segment) now
+//    carries each ray, so a segment launches G times the threads.
+// 2. Each leaf was a serial 128-iteration loop of dependent L2 loads per
+//    thread, ~880 triangle tests per bounce-0 ray. Each leaf now has 16
+//    sub-boxes (runs of 8 consecutive slots, built with the tree:
+//    ops/bvh.py sub_bounds_rows); the group tests them first, agrees on
+//    the mask of boxes hit, and spreads only those boxes' triangles over
+//    its lanes (~110 triangle tests per bounce-0 ray). A triangle's three
+//    coefficient rows come from a leaf-major copy of the table (per leaf:
+//    128 float4 c_n, then 128 c1, then 128 c2), loaded together, so a
+//    group's loads are contiguous and a test costs one trip to L2. The
+//    group reduces its least (enc, slot) with shuffles; the shadow walk
+//    ends a leaf on a vote of the group.
+// 3. The per-thread stack (int[64] + float[64]) lived in local memory.
+//    The walk is now stackless: the heap's node ids give each ancestor and
+//    sibling, and one 32-bit trail marks the levels whose far child is
+//    still to visit; on the way back the far child's box is tested again
+//    against the current bound. Registers are capped at 64 (8 blocks of 128
+//    threads per SM): the spills that costs are cheaper than the latency
+//    the extra warps hide.
+// 4. In the fused tail a lane whose ray died idles until its warp is done.
+//    This is not removed, only shortened: a warp holds 32 / G rays, and
+//    each ray's walk is split G ways.
+// The G lanes of a group walk the same node sequence and compute the
+// shading redundantly (no divergence inside a group, no broadcasts); only
+// lane 0 writes. The scene's small tables are staged per block in shared
+// memory, cut to the columns the scene uses.
+// Not here: wgmma (no matrix product), TMA, persistent threads.
 //
 // Numerics follow the JAX kernel: IEEE division (no fast math), NaN-
 // propagating min/max where jnp.minimum/maximum stood, sign(0) == 0. The
 // triangle winner is the least (hit t with its low 7 mantissa bits
 // cleared, slot) over all triangles hit before the analytic hit, which
-// makes the result independent of visit order; the plain version applies
-// the same rule. The tree walk's slab tests are only a cull: they are
-// made conservative (a NaN slab never rejects, a small relative slack on
-// both ends), so the walk never skips a leaf the dense sweep would hit.
+// makes the result independent of visit order and so of G; the plain
+// version applies the same rule. The tree walk's slab tests are only a
+// cull: they are made conservative (a NaN slab never rejects, a small
+// relative slack on both ends), so the walk never skips a leaf or a
+// sub-box the dense sweep would hit. Built with -fmad=false, so no
+// instantiation contracts a product into an FMA where another does not:
+// every G gives bitwise the same outputs as G = 1.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-//        -Xcompiler -fPIC (ops/_kernels.py does this at first use).
+//        -Xcompiler -fPIC -fmad=false (ops/_kernels.py does this at first
+//        use).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int LANE = 128;               // columns of the consts table
+constexpr int LANE = 128;               // columns of the consts table; slots per leaf
 constexpr int N_CONST_ROWS = 46;
 constexpr int SPH = 0, BOX = 5, CYL = 12, MAT = 27, LGT = 45;
 constexpr float INF = 3.4e38f;
 constexpr float PARK = 1e8f;
 constexpr float PI = 3.14159265358979f;
-constexpr int THREADS = 256;            // = ops/mega.py BLOCK
-constexpr int STACK = 64;               // > tree depth for any 32-bit leaf count
+constexpr int THREADS = 128;            // per block (256 measured slower)
+constexpr int MIN_BLOCKS = 8;           // per SM: caps registers at 64 per thread
+constexpr int SUB = 16;                 // sub-leaf boxes per leaf
+constexpr int SUB_TRIS = LANE / SUB;    // consecutive slots per sub-box
 constexpr float SLACK = 1.00001f;       // relative slack of the cull
 
 struct Params {
@@ -64,14 +88,42 @@ struct Params {
   const float* u;         // (8 nf, Rp)
   const float* ls;        // (10 nf, Rp)
   const float* consts;    // (46, 128)
-  const float4* tri;      // (S, 3) float4: [s1 c1] [s2 c2] [n cw]
+  const float4* tri;      // (S / 128, 3, 128) float4: [c_n x128][c1 x128][c2 x128]
+  const float* sub;       // (S / 128, 16, 8) sub-leaf boxes: min xyz, max xyz, 2 pad
   const int* tri_mat;     // (S,)
   const float* nodes;     // (n_internal, 12) child AABBs
   float* state_out;       // (11, Rp)
   float* rad_out;         // (3 + 3 nf, Rp)
   int Rp, nf, b_start, rr_start, n_leaves, m_occ, has_tris;
-  int ns, nb, nc, nl, do_nee, do_mis, rr_quirk;
+  int ns, nb, nc, nl, do_nee, do_mis, rr_quirk, cw;
   float t_min, hit_eps, rr_p;
+};
+
+// the consts table as staged in shared memory: 46 rows of cw columns
+struct Tab {
+  const float* s;
+  int w;
+  __device__ __forceinline__ float operator()(int row, int j) const { return s[row * w + j]; }
+};
+
+// The G lanes of a group that carries one ray (G divides 32).
+template <int G>
+struct Group {
+  unsigned mask;
+  int lane;
+  __device__ __forceinline__ Group() {
+    const int l = threadIdx.x & 31;
+    lane = l & (G - 1);
+    mask = (G == 32) ? 0xFFFFFFFFu : (((1u << G) - 1u) << (l & ~(G - 1)));
+  }
+  __device__ __forceinline__ bool any(bool x) const {
+    if constexpr (G == 1) return x;
+    else return __any_sync(mask, x);
+  }
+  __device__ __forceinline__ unsigned or_all(unsigned x) const {
+    if constexpr (G == 1) return x;
+    else return __reduce_or_sync(mask, x);
+  }
 };
 
 struct V { float x, y, z; };
@@ -99,25 +151,23 @@ __device__ __forceinline__ V vnormalize(V a, float eps) {
   return scale(inv, a);
 }
 
-__device__ __forceinline__ float C(const float* sc, int row, int j) { return sc[row * LANE + j]; }
-
 struct Mat {
   V kd, ks, kt, emit;
   float ior, isl, tol, rough, pd_c, ps_c;
 };
 
-__device__ Mat gather_mat(const float* sc, int m) {
+__device__ Mat gather_mat(Tab sc, int m) {
   Mat r;
-  r.kd = mk(C(sc, MAT + 0, m), C(sc, MAT + 1, m), C(sc, MAT + 2, m));
-  r.ks = mk(C(sc, MAT + 3, m), C(sc, MAT + 4, m), C(sc, MAT + 5, m));
-  r.kt = mk(C(sc, MAT + 6, m), C(sc, MAT + 7, m), C(sc, MAT + 8, m));
-  r.ior = C(sc, MAT + 9, m);
-  r.emit = mk(C(sc, MAT + 10, m), C(sc, MAT + 11, m), C(sc, MAT + 12, m));
-  r.isl = C(sc, MAT + 13, m);
-  r.tol = C(sc, MAT + 14, m);
-  r.rough = C(sc, MAT + 15, m);
-  r.pd_c = C(sc, MAT + 16, m);
-  r.ps_c = C(sc, MAT + 17, m);
+  r.kd = mk(sc(MAT + 0, m), sc(MAT + 1, m), sc(MAT + 2, m));
+  r.ks = mk(sc(MAT + 3, m), sc(MAT + 4, m), sc(MAT + 5, m));
+  r.kt = mk(sc(MAT + 6, m), sc(MAT + 7, m), sc(MAT + 8, m));
+  r.ior = sc(MAT + 9, m);
+  r.emit = mk(sc(MAT + 10, m), sc(MAT + 11, m), sc(MAT + 12, m));
+  r.isl = sc(MAT + 13, m);
+  r.tol = sc(MAT + 14, m);
+  r.rough = sc(MAT + 15, m);
+  r.pd_c = sc(MAT + 16, m);
+  r.ps_c = sc(MAT + 17, m);
   return r;
 }
 
@@ -125,11 +175,11 @@ __device__ Mat gather_mat(const float* sc, int m) {
 // analytic primitives (ops/mega.py sphere/box/cylinder_consider)
 // ---------------------------------------------------------------------------
 
-__device__ void sphere_consider(const float* sc, int j, V o, V d, float t_min,
+__device__ void sphere_consider(Tab sc, int j, V o, V d, float t_min,
                                 float& bt, V& bn, int& bm, int& bi, int id) {
-  float cx = C(sc, SPH + 0, j), cy = C(sc, SPH + 1, j), cz = C(sc, SPH + 2, j);
-  float r = C(sc, SPH + 3, j);
-  int mt = (int)C(sc, SPH + 4, j);
+  float cx = sc(SPH + 0, j), cy = sc(SPH + 1, j), cz = sc(SPH + 2, j);
+  float r = sc(SPH + 3, j);
+  int mt = (int)sc(SPH + 4, j);
   V rel = mk(o.x - cx, o.y - cy, o.z - cz);
   float b = dot(d, rel);
   float c = dot(rel, rel) - r * r;
@@ -142,11 +192,11 @@ __device__ void sphere_consider(const float* sc, int j, V o, V d, float t_min,
   }
 }
 
-__device__ void box_consider(const float* sc, int j, V o, V d, float t_min,
+__device__ void box_consider(Tab sc, int j, V o, V d, float t_min,
                              float& bt, V& bn, int& bm, int& bi, int id) {
-  float x0 = C(sc, BOX + 0, j), y0 = C(sc, BOX + 1, j), z0 = C(sc, BOX + 2, j);
-  float x1 = C(sc, BOX + 3, j), y1 = C(sc, BOX + 4, j), z1 = C(sc, BOX + 5, j);
-  int mt = (int)C(sc, BOX + 6, j);
+  float x0 = sc(BOX + 0, j), y0 = sc(BOX + 1, j), z0 = sc(BOX + 2, j);
+  float x1 = sc(BOX + 3, j), y1 = sc(BOX + 4, j), z1 = sc(BOX + 5, j);
+  int mt = (int)sc(BOX + 6, j);
   float ivx = 1.f / d.x, ivy = 1.f / d.y, ivz = 1.f / d.z;
   float ax0 = (x0 - o.x) * ivx, bx0 = (x1 - o.x) * ivx;
   float ay0 = (y0 - o.y) * ivy, by0 = (y1 - o.y) * ivy;
@@ -172,14 +222,14 @@ __device__ void box_consider(const float* sc, int j, V o, V d, float t_min,
   bm = mt; bi = id;
 }
 
-__device__ void cylinder_consider(const float* sc, int j, V o, V d, float t_min,
+__device__ void cylinder_consider(Tab sc, int j, V o, V d, float t_min,
                                   float& bt, V& bn, int& bm, int& bi, int id) {
-  float bx = C(sc, CYL + 0, j), by = C(sc, CYL + 1, j), bz = C(sc, CYL + 2, j);
-  float r = C(sc, CYL + 3, j), h = C(sc, CYL + 4, j);
+  float bx = sc(CYL + 0, j), by = sc(CYL + 1, j), bz = sc(CYL + 2, j);
+  float r = sc(CYL + 3, j), h = sc(CYL + 4, j);
   float q[9];
 #pragma unroll
-  for (int k = 0; k < 9; ++k) q[k] = C(sc, CYL + 5 + k, j);
-  int mt = (int)C(sc, CYL + 14, j);
+  for (int k = 0; k < 9; ++k) q[k] = sc(CYL + 5 + k, j);
+  int mt = (int)sc(CYL + 14, j);
   V rel = mk(o.x - bx, o.y - by, o.z - bz);
   float ox = q[0] * rel.x + q[1] * rel.y + q[2] * rel.z;
   float oy = q[3] * rel.x + q[4] * rel.y + q[5] * rel.z;
@@ -219,7 +269,7 @@ __device__ void cylinder_consider(const float* sc, int j, V o, V d, float t_min,
   bm = mt; bi = id;
 }
 
-__device__ void analytic_closest(const float* sc, const Params& p, V o, V d,
+__device__ void analytic_closest(Tab sc, const Params& p, V o, V d,
                                  float& bt, V& bn, int& bm, int& bi) {
   for (int j = 0; j < p.ns; ++j) sphere_consider(sc, j, o, d, p.t_min, bt, bn, bm, bi, j);
   for (int j = 0; j < p.nb; ++j) box_consider(sc, j, o, d, p.t_min, bt, bn, bm, bi, p.ns + j);
@@ -227,7 +277,7 @@ __device__ void analytic_closest(const float* sc, const Params& p, V o, V d,
     cylinder_consider(sc, j, o, d, p.t_min, bt, bn, bm, bi, p.ns + p.nb + j);
 }
 
-__device__ bool analytic_occluded(const float* sc, const Params& p, V o, V d, float tf) {
+__device__ bool analytic_occluded(Tab sc, const Params& p, V o, V d, float tf) {
   V bn; int bm, bi;
   for (int j = 0; j < p.ns; ++j) {
     float t = INF; sphere_consider(sc, j, o, d, p.t_min, t, bn, bm, bi, 0);
@@ -245,7 +295,7 @@ __device__ bool analytic_occluded(const float* sc, const Params& p, V o, V d, fl
 }
 
 // ---------------------------------------------------------------------------
-// triangles: per-thread walk of the implicit-heap LBVH
+// triangles: a group's stackless walk of the implicit-heap LBVH
 // ---------------------------------------------------------------------------
 
 // Conservative slab test of one AABB (6 floats: min xyz, max xyz). Returns
@@ -267,100 +317,159 @@ __device__ __forceinline__ bool slab(const float* box, V o, V iv, float lim, flo
   return (tf * SLACK >= near) && (near <= lim * SLACK);
 }
 
+// The ray against triangle j of a leaf (base = the leaf's leaf-major
+// coefficients): true and its t if t_min <= t < lim and the hit lies in the
+// triangle. The three coefficient loads are issued at once (one trip to L2
+// instead of up to three in a row).
+__device__ __forceinline__ bool tri_test(const float4* base, int j, V o, V d, float t_min,
+                                         float lim, float& t) {
+  const float4 cn = __ldg(base + j);
+  const float4 c1 = __ldg(base + LANE + j);
+  const float4 c2 = __ldg(base + 2 * LANE + j);
+  float d_w = d.x * cn.x + d.y * cn.y + d.z * cn.z;
+  if (!(fabsf(d_w) > 1e-12f)) return false;
+  float o_w = o.x * cn.x + o.y * cn.y + o.z * cn.z + cn.w;
+  t = -o_w / d_w;
+  if (!(t >= t_min && t < lim)) return false;
+  float uu = (o.x * c1.x + o.y * c1.y + o.z * c1.z + c1.w) + t * (d.x * c1.x + d.y * c1.y + d.z * c1.z);
+  if (!(uu >= 0.f)) return false;
+  float vv = (o.x * c2.x + o.y * c2.y + o.z * c2.z + c2.w) + t * (d.x * c2.x + d.y * c2.y + d.z * c2.z);
+  return vv >= 0.f && uu + vv <= 1.f;
+}
+
 struct TriHit { int enc, slot; float lim; };
 
-// Closest-hit sweep of one leaf: keep the least (enc, slot) among hits with
-// t < A (the analytic best); lim = min(A, first t whose enc exceeds best).
-__device__ void leaf_closest(const Params& p, int leaf, V o, V d, float A, TriHit& h) {
-  const int s0 = leaf * 128;
-  for (int j = 0; j < 128; ++j) {
-    int s = s0 + j;
-    float4 cn = __ldg(&p.tri[3 * s + 2]);
-    float d_w = d.x * cn.x + d.y * cn.y + d.z * cn.z;
-    if (!(fabsf(d_w) > 1e-12f)) continue;
-    float o_w = o.x * cn.x + o.y * cn.y + o.z * cn.z + cn.w;
-    float t = -o_w / d_w;
-    if (!(t >= p.t_min && t < h.lim)) continue;
-    float4 c1 = __ldg(&p.tri[3 * s + 0]);
-    float uu = (o.x * c1.x + o.y * c1.y + o.z * c1.z + c1.w) + t * (d.x * c1.x + d.y * c1.y + d.z * c1.z);
-    if (!(uu >= 0.f)) continue;
-    float4 c2 = __ldg(&p.tri[3 * s + 1]);
-    float vv = (o.x * c2.x + o.y * c2.y + o.z * c2.z + c2.w) + t * (d.x * c2.x + d.y * c2.y + d.z * c2.z);
-    if (!(vv >= 0.f && uu + vv <= 1.f)) continue;
+// The leaf's sub-boxes (runs of SUB_TRIS consecutive slots) that may hold
+// a hit nearer than lim, as a mask agreed by the group: lane k tests boxes
+// k, k+G, ...
+template <int G>
+__device__ unsigned leaf_boxes(const Params& p, const Group<G>& g, int leaf, V o, V iv, float lim) {
+  const float* boxes = p.sub + (size_t)leaf * SUB * 8;
+  unsigned m = 0;
+  for (int b = g.lane; b < SUB; b += G) {
+    float nn;
+    if (slab(boxes + b * 8, o, iv, lim, nn)) m |= 1u << b;
+  }
+  return g.or_all(m);
+}
+
+// Slot (within the leaf) of work item w: triangle w % SUB_TRIS of the
+// (w / SUB_TRIS)-th box of mask m.
+__device__ __forceinline__ int work_slot(unsigned m, int w) {
+  for (int k = w / SUB_TRIS; k > 0; --k) m &= m - 1;
+  return (__ffs(m) - 1) * SUB_TRIS + w % SUB_TRIS;
+}
+
+// Closest-hit sweep of one leaf by the group: the triangles of the boxes
+// that pass, spread over the lanes (lane k takes work items k, k+G, ...).
+// Keep the least (enc, slot) among hits with t < A (the analytic best);
+// lim = min(A, first t whose enc exceeds best). Each lane prunes on its own
+// best; the group then agrees on the least (enc, slot) and lim.
+template <int G>
+__device__ void leaf_closest(const Params& p, const Group<G>& g, int leaf, V o, V d, V iv,
+                             float A, TriHit& h) {
+  const unsigned m = leaf_boxes(p, g, leaf, o, iv, h.lim);
+  const int n = __popc(m) * SUB_TRIS;
+  const float4* base = p.tri + (size_t)leaf * 3 * LANE;
+  for (int w = g.lane; w < n; w += G) {
+    const int j = work_slot(m, w);
+    float t;
+    if (!tri_test(base, j, o, d, p.t_min, h.lim, t)) continue;
     int enc = __float_as_int(t) & ~127;
+    int s = leaf * LANE + j;
     if (enc < h.enc || (enc == h.enc && s < h.slot)) {
       h.enc = enc; h.slot = s;
       h.lim = fminf(A, __int_as_float(enc + 128));
     }
   }
+  if constexpr (G > 1) {
+#pragma unroll
+    for (int off = G / 2; off > 0; off >>= 1) {
+      int e = __shfl_xor_sync(g.mask, h.enc, off);
+      int s = __shfl_xor_sync(g.mask, h.slot, off);
+      float l = __shfl_xor_sync(g.mask, h.lim, off);
+      if (e < h.enc || (e == h.enc && s < h.slot)) { h.enc = e; h.slot = s; }
+      h.lim = fminf(h.lim, l);
+    }
+  }
 }
 
-__device__ bool leaf_anyhit(const Params& p, int leaf, V o, V d, float tf) {
-  const int s0 = leaf * 128;
-  for (int j = 0; j < 128; ++j) {
-    int s = s0 + j;
-    float4 cn = __ldg(&p.tri[3 * s + 2]);
-    float d_w = d.x * cn.x + d.y * cn.y + d.z * cn.z;
-    if (!(fabsf(d_w) > 1e-12f)) continue;
-    float o_w = o.x * cn.x + o.y * cn.y + o.z * cn.z + cn.w;
-    float t = -o_w / d_w;
-    if (!(t >= p.t_min && t < tf)) continue;
-    float4 c1 = __ldg(&p.tri[3 * s + 0]);
-    float uu = (o.x * c1.x + o.y * c1.y + o.z * c1.z + c1.w) + t * (d.x * c1.x + d.y * c1.y + d.z * c1.z);
-    if (!(uu >= 0.f)) continue;
-    float4 c2 = __ldg(&p.tri[3 * s + 1]);
-    float vv = (o.x * c2.x + o.y * c2.y + o.z * c2.z + c2.w) + t * (d.x * c2.x + d.y * c2.y + d.z * c2.z);
-    if (vv >= 0.f && uu + vv <= 1.f) return true;
+// Any-hit sweep of one leaf by the group: ends at the first round of G
+// work items in which some lane hits nearer than tf.
+template <int G>
+__device__ bool leaf_anyhit(const Params& p, const Group<G>& g, int leaf, V o, V d, V iv,
+                            float tf) {
+  const unsigned m = leaf_boxes(p, g, leaf, o, iv, tf);
+  const int n = __popc(m) * SUB_TRIS;
+  const float4* base = p.tri + (size_t)leaf * 3 * LANE;
+  for (int w0 = 0; w0 < n; w0 += G) {
+    const int w = w0 + g.lane;
+    float t;
+    bool hit = w < n && tri_test(base, work_slot(m, w), o, d, p.t_min, tf, t);
+    if (g.any(hit)) return true;
   }
   return false;
 }
 
-// Walk the heap. any_hit: stop at the first hit nearer than h.lim.
-// Returns true on an any-hit; closest hits land in h.
-template <bool ANY>
-__device__ bool walk(const Params& p, V o, V d, float A, TriHit& h) {
+// Walk the heap (children of node i at 2i+1 and 2i+2, leaves from
+// n_leaves - 1 on), nearer child first, pruning against h.lim. No stack:
+// bit L of `trail` says the far child at depth L is still to visit; the
+// way back finds it from the current node's id and tests its box again
+// against the bound as it stands then. any_hit: stop at the first hit
+// nearer than h.lim. Returns true on an any-hit; closest hits land in h.
+// Every lane of the group computes the same walk.
+template <bool ANY, int G>
+__device__ bool walk(const Params& p, const Group<G>& g, V o, V d, float A, TriHit& h) {
   if (p.m_occ <= 0) return false;
+  V iv = mk(1.f / d.x, 1.f / d.y, 1.f / d.z);
   if (p.n_leaves == 1) {
-    if (ANY) return leaf_anyhit(p, 0, o, d, h.lim);
-    leaf_closest(p, 0, o, d, A, h);
+    if (ANY) return leaf_anyhit(p, g, 0, o, d, iv, h.lim);
+    leaf_closest(p, g, 0, o, d, iv, A, h);
     return false;
   }
   const int first_leaf = p.n_leaves - 1;
-  V iv = mk(1.f / d.x, 1.f / d.y, 1.f / d.z);
-  int stack[STACK];
-  float snear[STACK];
-  int sp = 0;
-  stack[sp] = 0; snear[sp] = 0.f; ++sp;
-  while (sp > 0) {
-    --sp;
-    int nd = stack[sp];
-    if (!(snear[sp] <= h.lim * SLACK)) continue;   // pruned by a nearer hit
-    if (nd >= first_leaf) {
-      int leaf = nd - first_leaf;
-      if (leaf >= p.m_occ) continue;
-      if (ANY) {
-        if (leaf_anyhit(p, leaf, o, d, h.lim)) return true;
-      } else {
-        leaf_closest(p, leaf, o, d, A, h);
+  int node = 0, depth = 0;
+  unsigned trail = 0;
+  while (true) {
+    if (node < first_leaf) {
+      const float* c = p.nodes + (size_t)node * 12;
+      float n1 = 0.f, n2 = 0.f;
+      bool h1 = slab(c, o, iv, h.lim, n1);
+      bool h2 = slab(c + 6, o, iv, h.lim, n2);
+      if (h1 || h2) {
+        ++depth;
+        if (h1 && h2) {
+          trail |= 1u << depth;
+          node = (n1 <= n2) ? 2 * node + 1 : 2 * node + 2;
+        } else {
+          node = h1 ? 2 * node + 1 : 2 * node + 2;
+        }
+        continue;
       }
-      continue;
+    } else {
+      int leaf = node - first_leaf;
+      if (leaf < p.m_occ) {
+        if (ANY) {
+          if (leaf_anyhit(p, g, leaf, o, d, iv, h.lim)) return true;
+        } else {
+          leaf_closest(p, g, leaf, o, d, iv, A, h);
+        }
+      }
     }
-    const float* c = p.nodes + (size_t)nd * 12;
-    float n1 = 0.f, n2 = 0.f;
-    bool h1 = slab(c, o, iv, h.lim, n1);
-    bool h2 = slab(c + 6, o, iv, h.lim, n2);
-    int c1 = 2 * nd + 1, c2 = 2 * nd + 2;
-    if (h1 && h2) {
-      bool first1 = n1 <= n2;                      // push far, pop near
-      stack[sp] = first1 ? c2 : c1; snear[sp] = first1 ? n2 : n1; ++sp;
-      stack[sp] = first1 ? c1 : c2; snear[sp] = first1 ? n1 : n2; ++sp;
-    } else if (h1) {
-      stack[sp] = c1; snear[sp] = n1; ++sp;
-    } else if (h2) {
-      stack[sp] = c2; snear[sp] = n2; ++sp;
+    // back to the deepest far child still to visit whose box the bound
+    // has not pruned since
+    while (true) {
+      if (trail == 0) return false;
+      const int L = 31 - __clz(trail);
+      trail &= ~(1u << L);
+      const int anc = ((node + 1) >> (depth - L)) - 1;
+      node = (anc & 1) ? anc + 1 : anc - 1;
+      depth = L;
+      float nn;
+      if (slab(p.nodes + (size_t)((node - 1) >> 1) * 12 + ((node & 1) ? 0 : 6), o, iv, h.lim, nn))
+        break;
     }
   }
-  return false;
 }
 
 // ---------------------------------------------------------------------------
@@ -540,17 +649,23 @@ __device__ V sample_bsdf(float e0, float e1, float choice, V n, V wo, const Mat&
 }
 
 // ---------------------------------------------------------------------------
-// the kernel: one thread per ray, bounces [b_start, b_start + nf)
+// the kernel: a group of G lanes per ray, bounces [b_start, b_start + nf)
 // ---------------------------------------------------------------------------
 
-__global__ void __launch_bounds__(THREADS) mega_kernel(Params p) {
-  __shared__ float sc[N_CONST_ROWS * LANE];
-  for (int k = threadIdx.x; k < N_CONST_ROWS * LANE; k += blockDim.x) sc[k] = p.consts[k];
+template <int G>
+__global__ void __launch_bounds__(THREADS, MIN_BLOCKS) mega_kernel(Params p) {
+  extern __shared__ float smem[];
+  const int cw = p.cw;
+  for (int k = threadIdx.x; k < N_CONST_ROWS * cw; k += blockDim.x)
+    smem[k] = p.consts[(k / cw) * LANE + k % cw];
   __syncthreads();
+  const Tab sc{smem, cw};
 
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  const Group<G> g;
+  const int i = blockIdx.x * (THREADS / G) + threadIdx.x / G;
   const int Rp = p.Rp;
   if (i >= Rp) return;
+  const bool lead = g.lane == 0;   // the lane that writes the ray's outputs
   const int nf = p.nf;
   const int tri_base = p.ns + p.nb + p.nc;
   const int INF_ENC = __float_as_int(INF) & ~127;
@@ -569,7 +684,7 @@ __global__ void __launch_bounds__(THREADS) mega_kernel(Params p) {
     float* rec_vis = rad + (size_t)(3 + nf + fb) * Rp;
     float* rec_alive = rad + (size_t)(3 + 2 * nf + fb) * Rp;
     if (!alive) {                 // dead at the bounce's start: miss records
-      *rec_id = -1.f; *rec_vis = 0.f; *rec_alive = 0.f;
+      if (lead) { *rec_id = -1.f; *rec_vis = 0.f; *rec_alive = 0.f; }
       continue;
     }
     const float* uu = p.u + (size_t)(fb * 8) * Rp + i;
@@ -581,10 +696,10 @@ __global__ void __launch_bounds__(THREADS) mega_kernel(Params p) {
     analytic_closest(sc, p, o, d, bt, bn, bm, bid);
     if (p.has_tris) {
       TriHit h; h.enc = 0x7FFFFFFF; h.slot = 0x7FFFFFFF; h.lim = bt;
-      walk<false>(p, o, d, bt, h);
+      walk<false>(p, g, o, d, bt, h);
       if (h.slot != 0x7FFFFFFF && h.enc < INF_ENC) {
         bt = __int_as_float(h.enc);
-        float4 cn = __ldg(&p.tri[3 * h.slot + 2]);
+        float4 cn = __ldg(p.tri + (size_t)(h.slot >> 7) * 3 * LANE + (h.slot & 127));
         bn = mk(cn.x, cn.y, cn.z);
         bm = __ldg(&p.tri_mat[h.slot]);
         bid = tri_base + h.slot;
@@ -600,7 +715,7 @@ __global__ void __launch_bounds__(THREADS) mega_kernel(Params p) {
     float mis_w = 1.f;
     if (p.do_nee && p.do_mis) {
       float inv_l_hit = 0.f;
-      if (mp.tol >= 0.f && mp.tol < (float)p.nl) inv_l_hit = C(sc, LGT, (int)mp.tol);
+      if (mp.tol >= 0.f && mp.tol < (float)p.nl) inv_l_hit = sc(LGT, (int)mp.tol);
       float cos_l = dot(n, neg(d));
       float p_nee = inv_l_hit * t * t / jmax(fabsf(cos_l), 1e-6f);
       p_nee = valid ? p_nee : 0.f;
@@ -644,7 +759,7 @@ __global__ void __launch_bounds__(THREADS) mega_kernel(Params p) {
         occ = analytic_occluded(sc, p, x, wi_l, tfb);
         if (!occ && p.has_tris) {
           TriHit h; h.lim = tfb;
-          occ = walk<true>(p, x, wi_l, tfb, h);
+          occ = walk<true>(p, g, x, wi_l, tfb, h);
         }
       }
       vis_out = occ ? 0.f : 1.f;
@@ -691,11 +806,14 @@ __global__ void __launch_bounds__(THREADS) mega_kernel(Params p) {
       o = mk(PARK, PARK, PARK);
       prev_pdf = -1.f;
     }
-    *rec_id = (float)bid;
-    *rec_vis = vis_out;
-    *rec_alive = alive ? 1.f : 0.f;
+    if (lead) {
+      *rec_id = (float)bid;
+      *rec_vis = vis_out;
+      *rec_alive = alive ? 1.f : 0.f;
+    }
   }
 
+  if (!lead) return;
   float* so = p.state_out + i;
   so[0] = o.x; so[Rp] = o.y; so[2 * Rp] = o.z;
   so[3 * Rp] = d.x; so[4 * Rp] = d.y; so[5 * Rp] = d.z;
@@ -705,21 +823,34 @@ __global__ void __launch_bounds__(THREADS) mega_kernel(Params p) {
   rad[0] = rx; rad[Rp] = ry; rad[2 * Rp] = rz;
 }
 
+template <int G>
+int launch(const Params& p, cudaStream_t stream) {
+  constexpr int rays_per_block = THREADS / G;
+  const int blocks = (p.Rp + rays_per_block - 1) / rays_per_block;
+  const size_t smem = sizeof(float) * N_CONST_ROWS * p.cw;
+  mega_kernel<G><<<blocks, THREADS, smem, stream>>>(p);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
+// group: lanes per ray, one of 1, 2, 4, 8, 16, 32; cols: columns of the
+// consts table the scene uses (staged in shared memory), 1..128.
 extern "C" int mega_segment(
     const void* state, const void* u, const void* ls, const void* consts,
-    const void* tri, const void* tri_mat, const void* nodes,
+    const void* tri, const void* sub, const void* tri_mat, const void* nodes,
     void* state_out, void* rad_out,
     int Rp, int nf, int b_start, int rr_start, int n_leaves, int m_occ, int has_tris,
     int ns, int nb, int nc, int nl, int do_nee, int do_mis, int rr_quirk,
-    float t_min, float hit_eps, float rr_p, void* stream) {
+    int cols, int group, float t_min, float hit_eps, float rr_p, void* stream) {
+  if (cols < 1 || cols > LANE) return (int)cudaErrorInvalidValue;
   Params p;
   p.state = static_cast<const float*>(state);
   p.u = static_cast<const float*>(u);
   p.ls = static_cast<const float*>(ls);
   p.consts = static_cast<const float*>(consts);
   p.tri = static_cast<const float4*>(tri);
+  p.sub = static_cast<const float*>(sub);
   p.tri_mat = static_cast<const int*>(tri_mat);
   p.nodes = static_cast<const float*>(nodes);
   p.state_out = static_cast<float*>(state_out);
@@ -727,9 +858,16 @@ extern "C" int mega_segment(
   p.Rp = Rp; p.nf = nf; p.b_start = b_start; p.rr_start = rr_start;
   p.n_leaves = n_leaves; p.m_occ = m_occ; p.has_tris = has_tris;
   p.ns = ns; p.nb = nb; p.nc = nc; p.nl = nl;
-  p.do_nee = do_nee; p.do_mis = do_mis; p.rr_quirk = rr_quirk;
+  p.do_nee = do_nee; p.do_mis = do_mis; p.rr_quirk = rr_quirk; p.cw = cols;
   p.t_min = t_min; p.hit_eps = hit_eps; p.rr_p = rr_p;
-  int blocks = (Rp + THREADS - 1) / THREADS;
-  mega_kernel<<<blocks, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(p);
-  return (int)cudaGetLastError();
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (group) {
+    case 1: return launch<1>(p, s);
+    case 2: return launch<2>(p, s);
+    case 4: return launch<4>(p, s);
+    case 8: return launch<8>(p, s);
+    case 16: return launch<16>(p, s);
+    case 32: return launch<32>(p, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

@@ -1,8 +1,9 @@
 """Scene presets (counterpart of ``offline_raytracer_tpu/models/scenes.py``).
 
 ``analytic`` needs no data; ``bunny`` reads ``bunny.ply`` from ``data_dir``
-(by default ``data/`` at the repository root). The letter, dwarf and
-testscene presets wait until their data files are in the repository.
+(by default ``data/`` at the repository root). Both build on the card
+unless ``device="cpu"`` is passed. The letter, dwarf and testscene presets
+wait until their data files are in the repository.
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ import numpy as np
 
 from offline_raytracer_tpu_torch.scene.build import SceneBuilder
 from offline_raytracer_tpu_torch.scene.ply import load_ply
+from offline_raytracer_tpu_torch.scene.types import scene_device
 
 DATA_DIR = os.path.join(
     os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(
@@ -25,7 +27,7 @@ def _lookat_quat_y(angle=np.pi / 2):
     return np.array([0.0, np.sin(h), 0.0, np.cos(h)], np.float32)
 
 
-def analytic(width=256, height=256, device="cpu"):
+def analytic(width=256, height=256, device="cuda"):
     """Single sphere + floor box + one sphere light."""
     b = SceneBuilder()
     b.add_material(diffuse=(0.7, 0.3, 0.2))
@@ -57,8 +59,9 @@ def bunny_builder(v, f) -> SceneBuilder:
 
 
 def bunny(width=512, height=512, data_dir=DATA_DIR, leaf_size=128,
-          device="cpu"):
+          device="cuda"):
     """bunny.ply + floor + area light (NEE exercised)."""
+    device = scene_device(device)
     v, f = load_ply(os.path.join(data_dir, "bunny.ply"))
     return bunny_builder(v, f).build(width, height, bvh_leaf_size=leaf_size,
                                      device=device)

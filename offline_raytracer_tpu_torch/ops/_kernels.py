@@ -4,10 +4,12 @@ Each source is compiled by ``nvcc`` for Hopper (``sm_90a``) into a shared
 library with a plain C entry point, cached under ``build/kernels/`` at the
 repository root keyed on a hash of the source and the flags, and loaded
 with ctypes. No fast-math flags: the kernels rely on IEEE division, on
-``inf`` from ``1/0`` in slab tests and on exact ``sqrtf``. The two
-traversal kernels are also built with ``-fmad=false``, so their triangle
-test rounds exactly as the plain PyTorch version's does (no a*b+c
-contracted to an FMA); ``build_all`` starts one nvcc per source at once.
+``inf`` from ``1/0`` in slab tests and on exact ``sqrtf``. All three are
+also built with ``-fmad=false``: no a*b+c is contracted to an FMA, so the
+traversal kernels' triangle test rounds exactly as the plain PyTorch
+version's does, and the segment kernel's instantiations for each group
+size round alike (bitwise equal outputs). ``build_all`` starts one nvcc
+per source at once.
 """
 
 from __future__ import annotations
@@ -32,12 +34,13 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # argument types of each kernel library's C entry point
 SIGNATURES = {
     "mega": ("mega_segment",
-             [_P] * 9 + [_I] * 14 + [_F] * 3 + [_P]),
+             [_P] * 10 + [_I] * 16 + [_F] * 3 + [_P]),
     "traverse_cull": ("traverse_cull", [_P] * 9 + [_I] * 3 + [_F, _P]),
     "traverse_packet": ("traverse_packet", [_P] * 7 + [_I] * 4 + [_F, _P]),
 }
 # flags a library adds to NVCC_FLAGS
 EXTRA_FLAGS = {
+    "mega": ["-fmad=false"],
     "traverse_cull": ["-fmad=false"],
     "traverse_packet": ["-fmad=false"],
 }

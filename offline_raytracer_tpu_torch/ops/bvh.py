@@ -10,7 +10,10 @@ numpy code path as the JAX package's pure-Python builder, so slot order
 - internal nodes form an implicit heap (children of i at 2i+1, 2i+2,
   leaves from ``n_leaves - 1`` on); ``child_rows`` row i holds both
   children's AABBs in lanes 0-11;
-- padded slots have n = 0 (never hit), padded leaves inverted AABBs.
+- padded slots have n = 0 (never hit), padded leaves inverted AABBs;
+- each leaf also has ``SUB`` sub-boxes, the AABBs of its runs of
+  ``SUB_TRIS`` consecutive slots (the segment kernel's cull inside a leaf),
+  built from the same vertices as the leaf bounds and the planes.
 """
 
 from __future__ import annotations
@@ -23,6 +26,8 @@ import torch
 from offline_raytracer_tpu_torch.scene.types import TensorTable
 
 LEAF = 128  # triangles per leaf; planes rows: s1 xyz, c1, s2 xyz, c2, n xyz, cw
+SUB = 16    # sub-boxes per leaf
+SUB_TRIS = LEAF // SUB
 
 
 @dataclasses.dataclass(frozen=True)
@@ -32,6 +37,7 @@ class TriBVH(TensorTable):
     tri_index: torch.Tensor   # (M_pad*128,) int32 original tri id, -1 pad
     mat: torch.Tensor         # (M_pad*128,) int32 material per slot
     leaf_bounds: torch.Tensor = None  # (6, L_lane) leaf AABB rows
+    sub_bounds: torch.Tensor = None   # (M_pad, SUB, 6) sub-box min xyz, max xyz
     n_leaves: int = 1         # P, power of two
     m_occ: int = 1            # occupied leaves
 
@@ -99,6 +105,22 @@ def leaf_bounds_rows(tri_index, m_occ: int, v0, v1, v2) -> np.ndarray:
     out[0:3, :m_occ] = lmin.T
     out[3:6, :m_occ] = lmax.T
     return out
+
+
+def sub_bounds_rows(tri_index, v0, v1, v2) -> np.ndarray:
+    """(M_pad, SUB, 6) AABBs (min xyz, max xyz) of each leaf's runs of
+    SUB_TRIS consecutive slots, from leaf-ordered slot ids (M_pad * 128);
+    a run of padding slots gets an inverted box."""
+    slots = np.asarray(tri_index)
+    valid = (slots >= 0)[:, None]
+    idx = np.maximum(slots, 0)
+    tmin = np.minimum(np.minimum(v0[idx], v1[idx]), v2[idx])
+    tmax = np.maximum(np.maximum(v0[idx], v1[idx]), v2[idx])
+    lo = np.where(valid, tmin, np.float32(np.inf))
+    hi = np.where(valid, tmax, np.float32(-np.inf))
+    lo = lo.reshape(-1, SUB, SUB_TRIS, 3).min(2)
+    hi = hi.reshape(-1, SUB, SUB_TRIS, 3).max(2)
+    return np.concatenate([lo, hi], -1).astype(np.float32)
 
 
 def build_tri_bvh(v0, v1, v2, mat, leaf_size: int = LEAF) -> TriBVH:
@@ -184,5 +206,7 @@ def build_tri_bvh(v0, v1, v2, mat, leaf_size: int = LEAF) -> TriBVH:
             [pmat, np.zeros((m_pad - m_occ) * LEAF, np.int32)])),
         leaf_bounds=torch.from_numpy(
             leaf_bounds_rows(tri_index_full, m_occ, v0, v1, v2)),
+        sub_bounds=torch.from_numpy(
+            sub_bounds_rows(tri_index_full, v0, v1, v2)),
         n_leaves=int(p), m_occ=int(m_occ),
     )

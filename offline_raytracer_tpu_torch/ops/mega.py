@@ -10,7 +10,8 @@ the MegaMeta encoding, NEE visibility, alive).
 Two implementations share one contract:
 
 - ``mega_segment_cuda``: the hand-written Hopper kernel ``csrc/mega.cu``
-  (one thread per ray, per-thread BVH walk), counted in ``KERNEL_LAUNCHES``;
+  (a group of ``group_size`` lanes per ray splitting each leaf's triangle
+  test, one stackless BVH walk per group), counted in ``KERNEL_LAUNCHES``;
 - ``mega_segment_plain``: plain PyTorch, a plane-by-plane transcription of
   the JAX kernel with a dense, chunked triangle sweep in place of the walk.
 
@@ -36,6 +37,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from offline_raytracer_tpu_torch.ops.bvh import SUB
 from offline_raytracer_tpu_torch.ops.lights import sample_lights
 from offline_raytracer_tpu_torch.ops.traverse import tri_tables
 from offline_raytracer_tpu_torch.utils import rng
@@ -44,7 +46,10 @@ INF = 3.4e38
 LANE = 128          # columns of the consts table (entries per scene table)
 PARK = 1e8          # parked-ray origin
 PI = 3.14159265358979
-BLOCK = 256         # rays are padded to a multiple of the kernel's block
+BLOCK = 256         # rays are padded to a multiple of this
+GROUPS = (1, 2, 4, 8, 16, 32)   # lanes per ray the kernel is built for
+GROUP_LANES = 1 << 20   # lanes group_size aims a segment's live rays at
+GROUP_MAX = 8           # most lanes group_size gives a ray (see group_size)
 INF_ENC = int(np.array(INF, np.float32).view(np.int32)) & ~127
 
 # launches of the CUDA kernel; chip runs read it to prove the main path
@@ -76,16 +81,19 @@ class MegaMeta:
         # hit ids: [0, ns) sphere, [ns, ns+nb) box, [.., +nc) cylinder,
         # then BVH triangle slots (leaf*128 + lane); -1 = miss
         self.tri_base = ns + nb + nc
+        # columns the kernel stages: every table's entries lie below it
+        self.cols = max(ns, nb, nc, nm, nl, 1)
 
 
 def mega_ok(scene, cfg) -> bool:
     """Can the segment kernel host this scene?
 
-    The consts table is 128 columns wide (the kernel stages it whole in
-    shared memory, 23.5 KB), so each of the sphere, box, cylinder, material
-    and light tables holds at most 128 entries. Triangles need the scene's
-    BVH. There is no cap on the triangle count or leaf count: the kernel
-    walks the tree with a per-thread stack deeper than any 32-bit tree.
+    The consts table is 128 columns wide (the kernel stages the columns a
+    scene uses in shared memory, at most 23.5 KB), so each of the sphere,
+    box, cylinder, material and light tables holds at most 128 entries.
+    Triangles need the scene's BVH. There is no cap on the triangle count
+    or leaf count: the kernel's walk is stackless and its trail of pending
+    levels holds any 32-bit tree's depth.
     """
     if scene.materials.ior.shape[0] > LANE:
         return False
@@ -171,12 +179,22 @@ class MegaTables:
     consts: torch.Tensor    # (46, 128) float32
     meta: MegaMeta
     tri: torch.Tensor       # (S, 12) float32 coefficient rows per slot
+    tri_lm: torch.Tensor    # (S / 128, 3, 128, 4) leaf-major copy (kernel)
+    sub: torch.Tensor       # (S / 128, SUB, 8) sub-leaf boxes (kernel)
     tri_mat: torch.Tensor   # (S,) int32 material per slot
     nodes: torch.Tensor     # (n_internal, 12) child AABBs per heap node
     n_leaves: int
     m_occ: int              # occupied leaves (0: no triangles)
     world_min: torch.Tensor  # (3,) for the coherence key's origin cells
     world_max: torch.Tensor  # (3,)
+
+
+def leaf_major(tri):
+    """(S, 12) coefficient rows -> the kernel's leaf-major (S / 128, 3, 128,
+    4) copy: per leaf 128 float4 [n cw], then 128 [s1 c1], then 128 [s2
+    c2], so that consecutive lanes read consecutive slots' float4."""
+    return (tri.reshape(-1, LANE, 3, 4)[:, :, [2, 0, 1]]
+            .permute(0, 2, 1, 3).contiguous())
 
 
 def prepare_tables(scene, cfg) -> MegaTables:
@@ -186,20 +204,24 @@ def prepare_tables(scene, cfg) -> MegaTables:
     if scene.triangles.mat.shape[0] > 0:
         tt = tri_tables(bvh)
         tri, nodes = tt.tri, tt.nodes
+        # the BVH's sub-boxes, 8 floats a row (min xyz, max xyz, 2 zeros)
+        sub = torch.nn.functional.pad(bvh.sub_bounds, (0, 2)).contiguous()
         tri_mat = bvh.mat.to(torch.int32)
         lb = bvh.leaf_bounds
         wmin, wmax = lb[0:3].min(1).values, lb[3:6].max(1).values
         n_leaves, m_occ = bvh.n_leaves, bvh.m_occ
     else:
-        tri = torch.zeros((1, 12), dtype=torch.float32, device=dev)
-        tri_mat = torch.zeros((1,), dtype=torch.int32, device=dev)
+        tri = torch.zeros((LANE, 12), dtype=torch.float32, device=dev)
+        tri_mat = torch.zeros((LANE,), dtype=torch.int32, device=dev)
+        sub = torch.zeros((1, SUB, 8), dtype=torch.float32, device=dev)
         nodes = torch.zeros((1, 12), dtype=torch.float32, device=dev)
         wmin = torch.full((3,), INF, dtype=torch.float32, device=dev)
         wmax = torch.full((3,), -INF, dtype=torch.float32, device=dev)
         n_leaves, m_occ = 1, 0
     return MegaTables(
         consts=consts, meta=meta, tri=tri.contiguous(),
-        tri_mat=tri_mat.contiguous(), nodes=nodes.contiguous(),
+        tri_lm=leaf_major(tri), sub=sub, tri_mat=tri_mat.contiguous(),
+        nodes=nodes.contiguous(),
         n_leaves=n_leaves, m_occ=m_occ, world_min=wmin, world_max=wmax)
 
 
@@ -796,6 +818,7 @@ def _check_args(state, u, ls, tables: MegaTables, seg: Segment):
             raise ValueError(f"{name}: shape {tuple(x.shape)}, want {shape}")
     for name, x in (("state", state), ("u", u), ("ls", ls),
                     ("consts", tables.consts), ("tri", tables.tri),
+                    ("tri_lm", tables.tri_lm), ("sub", tables.sub),
                     ("nodes", tables.nodes)):
         if x.dtype != torch.float32:
             raise TypeError(f"{name}: dtype {x.dtype}, want float32")
@@ -809,13 +832,37 @@ def _check_args(state, u, ls, tables: MegaTables, seg: Segment):
         raise ValueError("tri and nodes must have 12 columns")
     if tables.m_occ * LANE > tables.tri.shape[0]:
         raise ValueError("tri holds fewer slots than m_occ leaves")
+    n_leaf_rows = tables.tri.shape[0] // LANE
+    if tuple(tables.tri_lm.shape) != (n_leaf_rows, 3, LANE, 4):
+        raise ValueError("tri_lm is not tri's leaf-major copy")
+    if tuple(tables.sub.shape) != (n_leaf_rows, SUB, 8):
+        raise ValueError("sub is not one row of sub-boxes per leaf")
+    if not 1 <= tables.n_leaves < 1 << 31:
+        raise ValueError(f"n_leaves {tables.n_leaves} outside [1, 2**31)")
     if Rp % BLOCK:
         raise ValueError(f"ray count {Rp} is not a multiple of {BLOCK}")
 
 
-def mega_segment_cuda(state, u, ls, tables: MegaTables, seg: Segment):
+def group_size(seg: Segment, Rp: int) -> int:
+    """Lanes per ray for a segment of Rp rays: a power of two, enough that
+    the rays expected alive at its first bounce (about half die per bounce)
+    fill GROUP_LANES lanes, and at most GROUP_MAX: a leaf's work, 16
+    sub-box tests and then 8 triangles per box hit, fills no more lanes.
+    Any choice gives the same outputs; the numbers are tuned on the H100
+    (PERF.md)."""
+    live = max(Rp >> min(seg.b_start, 31), 1)
+    g = 1
+    while g < GROUP_MAX and live * g * 2 <= GROUP_LANES:
+        g *= 2
+    return g
+
+
+def mega_segment_cuda(state, u, ls, tables: MegaTables, seg: Segment,
+                      group: int | None = None):
     """The Hopper kernel (csrc/mega.cu) on CUDA tensors; same contract as
-    ``mega_segment_plain``. Launches on the current stream, no sync."""
+    ``mega_segment_plain``. ``group``: lanes per ray, one of ``GROUPS``
+    (default ``group_size(seg, Rp)``); it changes no output. Launches on
+    the current stream, no sync."""
     global KERNEL_LAUNCHES
     from offline_raytracer_tpu_torch.ops import _kernels
 
@@ -823,8 +870,12 @@ def mega_segment_cuda(state, u, ls, tables: MegaTables, seg: Segment):
         raise ValueError(f"mega_segment_cuda needs CUDA tensors, got "
                          f"{state.device}")
     _check_args(state, u, ls, tables, seg)
-    fn = _kernels.load("mega")
     Rp = state.shape[1]
+    if group is None:
+        group = group_size(seg, Rp)
+    if group not in GROUPS:
+        raise ValueError(f"group {group} not in {GROUPS}")
+    fn = _kernels.load("mega")
     nf = seg.n_fused
     meta = tables.meta
     state_out = torch.empty_like(state)
@@ -833,14 +884,15 @@ def mega_segment_cuda(state, u, ls, tables: MegaTables, seg: Segment):
     with torch.cuda.device(state.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(state.data_ptr(), u.data_ptr(), ls.data_ptr(),
-                 tables.consts.data_ptr(), tables.tri.data_ptr(),
+                 tables.consts.data_ptr(), tables.tri_lm.data_ptr(),
+                 tables.sub.data_ptr(),
                  tables.tri_mat.data_ptr(), tables.nodes.data_ptr(),
                  state_out.data_ptr(), rad.data_ptr(),
                  Rp, nf, seg.b_start, seg.rr_start, tables.n_leaves,
                  tables.m_occ, int(tables.m_occ > 0), meta.ns, meta.nb,
                  meta.nc, meta.nl, int(seg.do_nee), int(seg.do_mis),
-                 int(seg.rr_quirk), seg.t_min, seg.hit_eps, seg.rr_p,
-                 stream)
+                 int(seg.rr_quirk), meta.cols, group, seg.t_min,
+                 seg.hit_eps, seg.rr_p, stream)
     if err != 0:
         raise RuntimeError(f"mega kernel launch failed: CUDA error {err}")
     KERNEL_LAUNCHES += 1

@@ -2,7 +2,8 @@
 
 Accumulates materials and primitives on the host with "current material =
 last declared" semantics, registers every emissive shape in the NEE light
-table, and ``build(device=...)`` freezes it all into the port's ``Scene``.
+table, and ``build(device=...)`` freezes it all into the port's ``Scene``
+(on the card unless ``device="cpu"`` is passed).
 The tables, light table, camera and BVH equal what the JAX builder makes
 from the same calls (the tests hold them to it).
 """
@@ -17,7 +18,7 @@ from offline_raytracer_tpu_torch.ops.camera import make_camera
 from offline_raytracer_tpu_torch.ops.lights import (
     KIND_CYLINDER, KIND_MESH, KIND_SPHERE, build_area_lights)
 from offline_raytracer_tpu_torch.scene.types import (
-    Boxes, Cylinders, Materials, Scene, Spheres, Triangles)
+    Boxes, Cylinders, Materials, Scene, Spheres, Triangles, scene_device)
 from offline_raytracer_tpu_torch.utils.math import rotation_matrix_to_z
 
 
@@ -146,7 +147,8 @@ class SceneBuilder:
 
     # ---- build ---------------------------------------------------------
     def build(self, width=None, height=None, bvh_leaf_size: int = 128,
-              with_bvh: bool = True, device="cpu") -> Scene:
+              with_bvh: bool = True, device="cuda") -> Scene:
+        device = scene_device(device)
         W = self.width if width is None else width
         H = self.height if height is None else height
         t = torch.from_numpy

@@ -12,6 +12,17 @@ import dataclasses
 import torch
 
 
+def scene_device(device) -> torch.device:
+    """The device a scene entry point builds on ("cuda" by default). Asked
+    for CUDA without a card, it raises rather than build on the CPU."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: scenes are built on the card by default; pass "
+            "device=\"cpu\" to build on the CPU")
+    return dev
+
+
 def _to(x, device):
     if isinstance(x, torch.Tensor):
         return x.to(device)

@@ -66,7 +66,7 @@ def test_render_block_route_under_autograd(monkeypatch, route):
     records, no replay); a differentiated one takes the replay that
     grad_mode names, with records from one segment run per sample."""
     grad_mode, requires, no_grad, want = ROUTES[route]
-    scene = mesh_recipe(SceneBuilder).build(16, 16)
+    scene = mesh_recipe(SceneBuilder).build(16, 16, device="cpu")
     kd = scene.materials.diffuse.clone().requires_grad_(requires)
     cfg = RenderConfig(width=16, height=16, spp=2, max_bounces=3,
                        enable_dof=False, grad_mode=grad_mode)
@@ -110,7 +110,7 @@ def test_render_image_diff_segment_route(monkeypatch, grad_mode):
     vs central finite differences of the port's own render within
     tests/test_integrator.py's rtol 0.08."""
     g_ref, js = _jax_albedo_grad()
-    ts = scene_from_arrays(jax_scene_arrays(js))
+    ts = scene_from_arrays(jax_scene_arrays(js), device="cpu")
     cfg = RenderConfig(spp=24, width=12, height=12, max_bounces=3,
                        enable_dof=False, grad_mode=grad_mode)
     segment = Spy(monkeypatch, mega, "render_paths_mega")
@@ -134,7 +134,7 @@ def test_render_image_diff_segment_route(monkeypatch, grad_mode):
 
 @functools.lru_cache(maxsize=None)
 def _port_optimize():
-    ts = analytic_recipe(SceneBuilder).build(64, 64)
+    ts = analytic_recipe(SceneBuilder).build(64, 64, device="cpu")
     cfg = RenderConfig(**INV)
     ids = torch.arange(144, dtype=torch.int32)
     target = port_render.render_block(ts, cfg, ids, 0, 8)
@@ -180,7 +180,7 @@ def test_apply_material_params_tie_gradient():
     d = np.array([[0.0, 0.5, 1.0]], np.float32)
     e = np.array([[0.0, 2.0, -1.0]], np.float32)
     js = analytic_recipe(JaxBuilder).build(8, 8)
-    ts = analytic_recipe(SceneBuilder).build(8, 8)
+    ts = analytic_recipe(SceneBuilder).build(8, 8, device="cpu")
 
     def jax_sum(p):
         m = jax_diff.apply_material_params(js, p).materials

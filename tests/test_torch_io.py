@@ -49,7 +49,7 @@ def test_bunny_preset_matches_jax(tmp_path):
     v, f = procedural_mesh(700)
     _write_ply(tmp_path / "bunny.ply", v * 0.075, f.tolist())
     js = jax_scenes.bunny(32, 32, data_dir=str(tmp_path))
-    ts = scenes.bunny(32, 32, data_dir=str(tmp_path))
+    ts = scenes.bunny(32, 32, data_dir=str(tmp_path), device="cpu")
     for path, want in jax_scene_arrays(js).items():
         got = port_leaf(ts, path)
         if path.startswith(".tri_bvh.") and path.split(".")[-1] in (

@@ -25,14 +25,15 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 def test_golden_analytic():
     """The JAX package's stored render (tests/test_integrator.py)."""
-    img = render_image(analytic(24, 24), RenderConfig(spp=16, seed=7, **BASE))
+    img = render_image(analytic(24, 24, device="cpu"),
+                       RenderConfig(spp=16, seed=7, **BASE))
     golden = np.load(GOLDEN)
     assert img.shape == golden.shape == (24, 24, 3)
     _assert_close(golden.reshape(-1, 3), img.reshape(-1, 3))
 
 
 def test_render_deterministic_and_batch_invariant():
-    scene = analytic(24, 24)
+    scene = analytic(24, 24, device="cpu")
     cfg = RenderConfig(spp=4, **BASE)
     ids = torch.arange(24 * 24, dtype=torch.int32)
     a = render_block(scene, cfg, ids, 0, 4).numpy()
@@ -44,7 +45,7 @@ def test_render_deterministic_and_batch_invariant():
 
 
 def test_render_stats_count_rays():
-    scene = analytic(16, 16)
+    scene = analytic(16, 16, device="cpu")
     cfg = RenderConfig(width=16, height=16, spp=3, max_bounces=4,
                        enable_dof=False, ray_batch=2 * 16 * 16)
     ids = torch.from_numpy(tile_pixel_ids(16, 16))
@@ -87,7 +88,8 @@ def test_port_runs_without_jax():
         "import offline_raytracer_tpu_torch.render as r\n"
         "from offline_raytracer_tpu_torch import RenderConfig\n"
         "from offline_raytracer_tpu_torch.models.scenes import analytic\n"
-        "img = r.render_image(analytic(16, 16), RenderConfig(width=16, "
+        "img = r.render_image(analytic(16, 16, device='cpu'), "
+        "RenderConfig(width=16, "
         "height=16, spp=2, max_bounces=3, enable_dof=False))\n"
         "assert img.shape == (16, 16, 3) and np.isfinite(img).all()\n"
         "assert img.mean() > 0\n"

@@ -32,7 +32,8 @@ NATIVE_TOLERANT = {".tri_bvh.planes", ".tri_bvh.child_rows"}
 
 @pytest.fixture(scope="module")
 def scenes():
-    return {name: (r(JaxBuilder).build(64, 64), r(SceneBuilder).build(64, 64))
+    return {name: (r(JaxBuilder).build(64, 64),
+                   r(SceneBuilder).build(64, 64, device="cpu"))
             for name, r in RECIPES.items()}
 
 
@@ -65,7 +66,7 @@ def test_builder_matches_jax(scenes, name):
 def test_scene_from_arrays_is_exact(scenes, name):
     js, _ = scenes[name]
     arrays = jax_scene_arrays(js)
-    ts = scene_from_arrays(arrays)
+    ts = scene_from_arrays(arrays, device="cpu")
     for path, want in arrays.items():
         got = port_leaf(ts, path)
         assert got.dtype == want.dtype, path
@@ -79,7 +80,7 @@ def test_scene_from_arrays_rejects_unknown_leaf(scenes):
     arrays = jax_scene_arrays(scenes["analytic"][0])
     arrays[".materials.albedo"] = np.zeros(3, np.float32)
     with pytest.raises(KeyError):
-        scene_from_arrays(arrays)
+        scene_from_arrays(arrays, device="cpu")
 
 
 @pytest.mark.parametrize("dof", [False, True])

@@ -42,7 +42,8 @@ def scenes():
     out = {}
     for name, recipe in (("shaped", shaped_recipe), ("mesh", mesh_recipe)):
         js = recipe(SceneBuilder).build(32, 32)
-        out[name] = (js, scene_from_arrays(jax_scene_arrays(js)))
+        ts = scene_from_arrays(jax_scene_arrays(js), device="cpu")
+        out[name] = (js, ts)
     return out
 
 

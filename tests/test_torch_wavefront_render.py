@@ -52,7 +52,8 @@ def scenes():
     out = {}
     for name, recipe in (("mesh", mesh_recipe), ("crowd", _crowd_recipe)):
         js = recipe(SceneBuilder).build(16, 16)
-        out[name] = (js, scene_from_arrays(jax_scene_arrays(js)))
+        ts = scene_from_arrays(jax_scene_arrays(js), device="cpu")
+        out[name] = (js, ts)
     return out
 
 
@@ -129,9 +130,9 @@ def test_auto_route_takes_the_segment_kernel(scenes, monkeypatch):
 def test_golden_analytic_wavefront(kw):
     """The JAX package's stored render (tests/test_integrator.py:45-55),
     through the wavefront route, at that test's tolerance."""
-    img = port_render.render_image(analytic(24, 24), RenderConfig(
-        width=24, height=24, spp=16, seed=7, max_bounces=5,
-        enable_dof=False, **kw))
+    cfg = RenderConfig(width=24, height=24, spp=16, seed=7, max_bounces=5,
+                       enable_dof=False, **kw)
+    img = port_render.render_image(analytic(24, 24, device="cpu"), cfg)
     np.testing.assert_allclose(img, np.load(GOLDEN), rtol=1e-4, atol=1e-6)
 
 
@@ -151,7 +152,7 @@ def test_gradient_matches_jax_grad_and_fd(analytic_scene):
 
     g_ref = float(jax.grad(jax_mean)(jnp.float32(1.0)))
 
-    ts = scene_from_arrays(jax_scene_arrays(analytic_scene))
+    ts = scene_from_arrays(jax_scene_arrays(analytic_scene), device="cpu")
     cfg = RenderConfig(**kw)
 
     def port_mean(s):

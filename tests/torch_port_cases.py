@@ -166,7 +166,7 @@ def mega_case(recipe, R, **cfg_kw):
     _, counts = trace_paths(scene, jcfg, trace_fn, ro, rd, keys,
                             collect_stats=True, occl_fn=occl_fn)
 
-    tscene = scene_from_arrays(jax_scene_arrays(scene))
+    tscene = scene_from_arrays(jax_scene_arrays(scene), device="cpu")
     tkeys = rng.pixel_sample_keys(
         rng.render_key(base.get("seed", 0)), torch.from_numpy(ids),
         torch.zeros((R,), dtype=torch.int32))
@@ -268,7 +268,7 @@ def wavefront_case(recipe, R, traversal="cull", **cfg_kw):
     rad, counts = jax_trace(scene, jcfg, trace_fn, ro, rd, keys,
                             collect_stats=True, occl_fn=occl_fn)
 
-    tscene = scene_from_arrays(jax_scene_arrays(scene))
+    tscene = scene_from_arrays(jax_scene_arrays(scene), device="cpu")
     cfg = RenderConfig(traversal=traversal, **base)
     tkeys = rng.pixel_sample_keys(
         rng.render_key(cfg.seed), torch.from_numpy(ids),
@@ -315,7 +315,8 @@ def replay_case(recipe, R, records=True, **cfg_kw):
                                   torch.zeros((R,), dtype=torch.int32))
     t = lambda x: torch.from_numpy(np.array(x))  # noqa: E731
     c = dict(jcfg=jcfg, cfg=RenderConfig(**base), js=js,
-             ts=scene_from_arrays(jax_scene_arrays(js)), keys=keys,
+             ts=scene_from_arrays(jax_scene_arrays(js), device="cpu"),
+             keys=keys,
              tkeys=tkeys, ro=ro, rd=rd, t_ro=t(ro), t_rd=t(rd))
     if records:
         rad, hit_ids, vis = jax_mega.render_paths_mega(

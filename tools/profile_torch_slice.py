@@ -2,6 +2,7 @@
 """Where the time of one sample of the port's slice goes, on one GPU.
 
     python3 tools/profile_torch_slice.py [--samples N] [--traversal ROUTE]
+    python3 tools/profile_torch_slice.py --sweep
     python3 tools/profile_torch_slice.py --grad [--samples N]
 
 Builds the bunny stand-in of chip_smoke.py (69,451 triangles) and renders
@@ -9,8 +10,12 @@ Builds the bunny stand-in of chip_smoke.py (69,451 triangles) and renders
 
 - ``mega`` (default): the segment route. Prints the wall time per sample,
   each segment kernel's device time (CUDA events) at the main path's
-  shapes, and a torch.profiler table of device time by kernel name with
+  shapes, at the lanes per ray ``mega.group_size`` picks and at one lane
+  per ray, and a torch.profiler table of device time by kernel name with
   the device's busy share of the window.
+- ``--sweep``: each segment of one sample at every group size of
+  ``mega.GROUPS``, each held bit for bit against one lane per ray, after
+  the kernel's registers, stack frame and spills.
 - ``cull`` or ``packet``: the wavefront route. Prints the wall time per
   sample; then, for one sample with a synchronise around each triangle
   query (so the parts add up, at the cost of the overlap between host and
@@ -22,8 +27,10 @@ Builds the bunny stand-in of chip_smoke.py (69,451 triangles) and renders
   respect to the albedo and the mesh's v0). Prints the wall time per step;
   the split of a step into the segment launches with records, the replay's
   forward and the backward (CUDA events between the parts, averaged over
-  ``--samples`` steps); the peak device memory of a step; then the
-  profiler table over ``--samples`` steps.
+  ``--samples`` steps); the peak device memory of a step; each of the
+  step's segment launches alone (CUDA events) at the lanes per ray
+  ``mega.group_size`` picks and at one lane per ray; then the profiler
+  table over ``--samples`` steps.
 
 Needs CUDA.
 """
@@ -180,6 +187,19 @@ def grad_breakdown(scene, cfg, ids, steps):
           f"{parts[1]:.3f} ms, backward {parts[2]:.3f} ms; peak device "
           f"memory {peak:.1f} MiB")
 
+    # the step's segment launches alone, at its shapes
+    total = {"rule": 0.0, "G=1": 0.0}
+    for s in chip_smoke.capture_segments(scene, gcfg, gids):
+        g = mega.group_size(s[4], s[0].shape[1])
+        ms = chip_smoke.group_times(s, (1, g))
+        total["rule"] += ms[g]
+        total["G=1"] += ms[1]
+        print(f"  step segment b={s[4].b_start} nf={s[4].n_fused}: "
+              f"{int((s[0][10] > 0.5).sum())} live of {s[0].shape[1]}, "
+              f"kernel {ms[g]:.3f} ms at G={g} ({ms[1]:.3f} ms at G=1)")
+    print(f"  the step's segment kernels: {total['rule']:.3f} ms at the "
+          f"rule's G, {total['G=1']:.3f} ms at G=1")
+
     # the backward of each differentiated gather alone, at the step's
     # index shapes (all bounces' recorded winners at once)
     base = (scene.spheres.radius.shape[0] + scene.boxes.mat.shape[0]
@@ -224,6 +244,8 @@ def main() -> int:
                     choices=("mega", "cull", "packet"))
     ap.add_argument("--grad", action="store_true",
                     help="profile the gradient step instead")
+    ap.add_argument("--sweep", action="store_true",
+                    help="time each segment at every group size")
     args = ap.parse_args()
 
     dev = torch.device("cuda", 0)
@@ -232,6 +254,20 @@ def main() -> int:
                        enable_dof=False, ray_batch=512 * 512,
                        traversal=args.traversal)
     ids = torch.from_numpy(tile_pixel_ids(512, 512)).to(dev)
+    if args.sweep:
+        from offline_raytracer_tpu_torch.ops import _kernels
+
+        info = _kernels.build("mega")
+        print(" | ".join(chip_smoke.ptxas_summary(info["log"])))
+        segs = chip_smoke.capture_segments(scene, cfg, ids)
+        for s in segs:
+            live = int((s[0][10] > 0.5).sum())
+            ms = chip_smoke.group_times(s, mega.GROUPS)
+            print(f"segment b={s[4].b_start} nf={s[4].n_fused}: {live} live "
+                  f"of {s[0].shape[1]}, kernel ms by lanes per ray: "
+                  + ", ".join(f"G={g} {t:.3f}" for g, t in ms.items())
+                  + " (outputs bitwise equal to G=1)")
+        return 0
     if args.grad:
         grad_breakdown(scene, cfg, ids, args.samples)
         return 0
@@ -249,12 +285,13 @@ def main() -> int:
 
     # each segment's kernel time at the main path's shapes
     segs = chip_smoke.capture_segments(scene, cfg, ids)
-    for state, u, ls, tables, seg in segs:
-        ms = chip_smoke.time_ms(
-            lambda: mega.mega_segment_cuda(state, u, ls, tables, seg), 5)
-        live = int((state[10] > 0.5).sum())
-        print(f"segment b={seg.b_start} nf={seg.n_fused}: {live} live of "
-              f"{state.shape[1]}, kernel {ms:.3f} ms")
+    for s in segs:
+        g = mega.group_size(s[4], s[0].shape[1])
+        ms = chip_smoke.group_times(s, (1, g))
+        live = int((s[0][10] > 0.5).sum())
+        print(f"segment b={s[4].b_start} nf={s[4].n_fused}: {live} live of "
+              f"{s[0].shape[1]}, kernel {ms[g]:.3f} ms at G={g} "
+              f"({ms[1]:.3f} ms at G=1)")
 
     profile_table(lambda: render_block(scene, cfg, ids, 1, args.samples,
                                        tables), f"{args.samples} samples")
