@@ -23,17 +23,19 @@ Phases, each printing its own line; any failure exits non-zero:
    per sample, with the segment tables built once as ``render_image`` does,
    counting rays after the loop as bench.py does, and checking that every
    segment went through the kernel;
-5. the wavefront route's triangle queries: the inputs of every query of
-   one wavefront sample of the same probe (8 bounces, NEE on) are
-   captured, and the cull-and-sweep kernel (``csrc/traverse_cull.cu``)
-   and the packet walk kernel (``csrc/traverse_packet.cu``) are held
-   against the plain dense sweep on bounce 0's closest-hit query (which
-   must hit triangles), on the last live bounce's and on bounce 0's
-   shadow any-hit query;
+5. the wavefront route's triangle queries: the inputs of the 16 queries
+   of one full-size wavefront sample (262,144 rays, 8 bounces, NEE on:
+   per bounce a closest-hit and a shadow any-hit query) are captured, and
+   on each the cull-and-sweep kernel (``csrc/traverse_cull.cu``) and the
+   tree walk kernel (``csrc/traverse_packet.cu``) are held against the
+   plain dense sweep (bounce 0's closest hit must hit triangles), every
+   lanes-per-ray G against G = 1 bit for bit, and each is timed at the
+   lanes per ray its wrapper picks, beside its bound; the sums over the
+   16 queries are the per-sample times;
 6. the wavefront slice: ``render_block_stats`` over the whole 512x512
    stand-in image with ``traversal="cull"`` and again with "packet", 4 spp
    each, every launch counted (one closest-hit and one shadow query per
-   bounce and sample);
+   bounce and sample), with the peak device memory;
 7. the cross-check of ``bench.py:69-85``: a 4,096-pixel probe (every 64th
    pixel of the tile order) at 2 spp through the segment, cull and packet
    routes, with that check's bounds;
@@ -56,7 +58,9 @@ Phases, each printing its own line; any failure exits non-zero:
 The line before the last is the kernels' JSON record (each kernel's
 launches on its route, its error and time against its plain version, its
 bound on this card from the bytes and operations of the same inputs, and
-the library call that computes the same function: none does); the last
+the library call that computes the same function: none does; for the two
+traversal kernels times and bounds are per sample, summed over its 16
+queries, with each query's beside them); the last
 line is
 ``{"ok": true, "device": {...}}``. Without CUDA it exits 1 and prints no
 result.
@@ -225,8 +229,10 @@ def ptxas_summary(log):
             frame = ln.strip()
         m = re.search(r"Used (\d+) registers", ln)
         if m and entry:
-            g = re.search(r"mega_kernelILi(\d+)E", entry)
-            name = f"mega_kernel<G={g.group(1)}>" if g else entry
+            k = re.search(r"\d([a-z]+_kernel)I((?:L[bi]\d+E)+)", entry)
+            name = entry if not k else k.group(1) + "<" + ",".join(
+                ("ANY=" if t == "b" else "G=") + v
+                for t, v in re.findall(r"L([bi])(\d+)E", k.group(2))) + ">"
             rows.append(f"{name}: {m.group(1)} registers, {frame}")
             entry = None
     return rows
@@ -324,74 +330,85 @@ def capture_queries(scene, cfg, pixel_ids):
     return seen
 
 
-def compare_query(name, query, t_min):
-    """Both kernels vs the plain dense sweep on one captured query.
-    Raises beyond the bounds; returns {kernel: measurements}."""
+def query_bound(kname, query, t_min, hits):
+    """(bound_ms, bound_by) of one triangle query by kernel ``kname``: the
+    rays, their bounds and the tables that kernel reads (leaf boxes or
+    tree nodes, the leaf-major coefficients, the sub-boxes) read once,
+    (t, slot) written once; per live ray two root slab tests, per hit a
+    walk to the leaf's depth, the leaf's sub-boxes and one sub-box's
+    triangles (the segment bound's operation count)."""
+    from offline_raytracer_tpu_torch.ops import bvh, traverse
+
+    tables, ro, rd, tf, _ = query
+    R = ro.shape[0]
+    cull = (tables.leaf_bounds if kname == "traverse_cull"
+            else tables.nodes)
+    nbytes = 4 * (ro.numel() + rd.numel() + (0 if tf is None else R)
+                  + cull.numel() + tables.tri_lm.numel()
+                  + tables.sub.numel() + 2 * R)
+    n_live = int(traverse.live_rays(ro, tf, t_min).sum())
+    depth = max(tables.n_leaves.bit_length() - 1, 0)
+    return bound(nbytes, n_live * 2 * SLAB_FLOP + hits * (
+        (2 * depth + bvh.SUB) * SLAB_FLOP + bvh.SUB_TRIS * TRI_FLOP))
+
+
+def compare_query(b, query, t_min):
+    """Both kernels vs the plain dense sweep on one captured query of the
+    full-size sample: slots (closest hit) or occlusion bits (any hit) on
+    the live rays within QUERY_BUDGET, t within 1e-5 relative where slots
+    agree, every G bitwise equal to G = 1. Raises beyond the bounds;
+    returns (live rays, {kernel: measurements}): the query through the
+    wrapper at the G it picks, over 5 launches; the plain sweep timed
+    once."""
     import numpy as np
+    import torch
     from offline_raytracer_tpu_torch.ops import (
         traverse, traverse_cull, traverse_packet)
 
     tables, ro, rd, tf, any_hit = query
-    if any_hit:
-        live = (tf > t_min).cpu().numpy()
-    else:
-        live = (ro.abs().amax(1) < 1e7).cpu().numpy()   # not parked
+    live = traverse.live_rays(ro, tf, t_min).cpu().numpy()
     n_live = max(int(live.sum()), 1)
+    torch.cuda.synchronize()
+    t0 = time.time()
     p_t, p_s = (x.cpu().numpy() for x in traverse.tri_hit_plain(
         tables, ro, rd, t_min, tf, any_hit))
-    # the bound: rays, bounds and tables read once, (t, slot) written
-    # once; per live ray the root's two slab tests, per hit a walk to a
-    # leaf and its 128 triangles
-    R = ro.shape[0]
-    nbytes = 4 * (ro.numel() + rd.numel() + (0 if tf is None else R)
-                  + tables.tri.numel() + tables.nodes.numel()
-                  + tables.leaf_bounds.numel() + 2 * R)
-    depth = max(tables.n_leaves.bit_length() - 1, 0)
-    hits = int((p_s >= 0).sum())
-    b_ms, b_by = bound(nbytes, n_live * 2 * SLAB_FLOP + hits * (
-        2 * depth * SLAB_FLOP + 128 * TRI_FLOP))
-    p_ms = time_ms(lambda: traverse.tri_hit_plain(
-        tables, ro, rd, t_min, tf, any_hit), 2)
-    inputs = traverse_cull.cull_inputs(tables, ro, rd, tf)
-    runs = {
-        "traverse_cull": (
-            lambda: traverse_cull.bvh_hit_ts_cull_cuda(
-                tables, ro, rd, t_min, tf, any_hit),
-            lambda: traverse_cull.sweep_cuda(tables, inputs, t_min,
-                                             any_hit)),
-        "traverse_packet": (
-            lambda: traverse_packet.bvh_hit_ts_packet_cuda(
-                tables, ro, rd, t_min, tf, any_hit), None),
-    }
+    p_ms = (time.time() - t0) * 1e3
     out = {}
-    for kname, (query_fn, kernel_only) in runs.items():
-        k_t, k_s = (x.cpu().numpy() for x in query_fn())
+    for kname, mod in (("traverse_cull", traverse_cull),
+                       ("traverse_packet", traverse_packet)):
+        fn = getattr(mod, f"bvh_hit_ts_{kname.split('_')[1]}_cuda")
+        k_t, k_s = (x.cpu().numpy() for x in fn(tables, ro, rd, t_min, tf,
+                                               any_hit))
         if any_hit:
             differ = ((k_s >= 0) != (p_s >= 0)) & live
         else:
             differ = (k_s != p_s) & live
         if differ.sum() > QUERY_BUDGET * n_live:
-            raise AssertionError(f"{name} {kname}: {int(differ.sum())} of "
-                                 f"{n_live} live rays differ")
+            raise AssertionError(f"bounce {b} {kname}: {int(differ.sum())} "
+                                 f"of {n_live} live rays differ")
         both = (k_s == p_s) & (k_s >= 0) & live
         err = float(np.abs(k_t[both] - p_t[both]).max()) if both.any() else 0.0
         rel = (np.abs(k_t[both] - p_t[both])
                / np.abs(p_t[both])).max() if both.any() else 0.0
         if not any_hit and rel > 1e-5:
-            raise AssertionError(f"{name} {kname}: t rel err {rel:.3e}")
-        q_ms = time_ms(query_fn, 10)
-        k_ms = time_ms(kernel_only, 10) if kernel_only else q_ms
-        log(f"  {name} {kname}: R={ro.shape[0]} live={n_live} "
-            f"hits kernel={int((k_s >= 0).sum())} plain="
-            f"{int((p_s >= 0).sum())} differ={int(differ.sum())} "
-            f"max_abs_err={err:.3e} kernel_ms={k_ms:.4f} "
-            f"query_ms={q_ms:.4f} plain_ms={p_ms:.4f} "
-            f"bound_ms={b_ms:.4f} ({b_by})")
-        out[kname] = {"err": err, "ms": k_ms, "query_ms": q_ms,
-                      "plain_ms": p_ms, "hits": hits,
+            raise AssertionError(f"bounce {b} {kname}: t rel err {rel:.3e}")
+        ref = fn(tables, ro, rd, t_min, tf, any_hit, group=1)
+        for g in traverse.GROUPS[1:]:
+            got = fn(tables, ro, rd, t_min, tf, any_hit, group=g)
+            for r, k in zip(ref, got):
+                if not torch.equal(r.view(torch.int32), k.view(torch.int32)):
+                    raise AssertionError(f"bounce {b} {kname}: G={g} differs "
+                                         f"from G=1")
+        hits = int((k_s >= 0).sum())
+        b_ms, b_by = query_bound(kname, query, t_min, hits)
+        out[kname] = {"ms": time_ms(lambda: fn(tables, ro, rd, t_min, tf,
+                                               any_hit), 5),
+                      "group": traverse.group_size(ro.shape[0]),
+                      "plain_ms": p_ms, "err": err, "hits": hits,
+                      "differ": int(differ.sum()),
                       "bound_ms": b_ms, "bound_by": b_by,
                       "agreement": 1.0 - float(differ.sum()) / n_live}
-    return out
+    return n_live, out
 
 
 def wavefront_phases(scene, cfg, order, card):
@@ -404,21 +421,35 @@ def wavefront_phases(scene, cfg, order, card):
     from offline_raytracer_tpu_torch.render import (
         render_block, render_block_stats)
 
-    # ---- phase 5: both kernels vs the plain sweep on the route's queries
-    queries = capture_queries(scene, cfg, order[::order.shape[0] // PROBE])
-    closest = [q for q in queries if not q[4]]
-    shadow = [q for q in queries if q[4]]
-    b_last = max(b for b, q in enumerate(closest)
-                 if (q[1].abs().amax(1) < 1e7).any())
-    log(f"phase 5 queries: {len(closest)} closest-hit and {len(shadow)} "
-        f"shadow queries of one {closest[0][1].shape[0]}-ray sample; the "
-        f"last with live rays is bounce {b_last}")
-    b0 = compare_query("bounce-0 closest", closest[0], cfg.t_min)
-    if b0["traverse_cull"]["hits"] == 0:
-        fail("the probe's bounce-0 closest-hit query hit no triangle")
-    res = [b0, compare_query(f"bounce-{b_last} closest", closest[b_last],
-                             cfg.t_min),
-           compare_query("bounce-0 shadow", shadow[0], cfg.t_min)]
+    # ---- phase 5: both kernels vs the plain sweep on every query of a
+    # full-size sample, each timed at the route's shapes
+    queries = capture_queries(scene, cfg, order)
+    log(f"phase 5 queries: {len(queries)} triangle queries of one "
+        f"{queries[0][1].shape[0]}-ray sample (per bounce a closest-hit "
+        f"and a shadow query)")
+    per_query = []
+    for k, q in enumerate(queries):
+        b, kind = k // 2, ("shadow" if q[4] else "closest")
+        n_live, res = compare_query(b, q, cfg.t_min)
+        if k == 0 and res["traverse_cull"]["hits"] == 0:
+            fail("the sample's bounce-0 closest-hit query hit no triangle")
+        per_query.append({"b": b, "kind": kind, "live": n_live, **res})
+        c, p = res["traverse_cull"], res["traverse_packet"]
+        log(f"  b={b} {kind}: live={n_live} hits={c['hits']} differ "
+            f"cull={c['differ']} packet={p['differ']}, every G bitwise; "
+            f"cull {c['ms']:.4f} ms (G={c['group']}), packet "
+            f"{p['ms']:.4f} ms (G={p['group']}), plain {c['plain_ms']:.1f} "
+            f"ms, bound cull {c['bound_ms']:.4f} packet "
+            f"{p['bound_ms']:.4f} ms ({c['bound_by']})")
+    sums = {k: {f: sum(q[k][f] for q in per_query)
+                for f in ("ms", "plain_ms", "bound_ms")}
+            for k in ("traverse_cull", "traverse_packet")}
+    log(f"phase 5 per sample ({len(queries)} queries): cull "
+        f"{sums['traverse_cull']['ms']:.4f} ms, packet "
+        f"{sums['traverse_packet']['ms']:.4f} ms, plain "
+        f"{sums['traverse_cull']['plain_ms']:.1f} ms; bounds cull "
+        f"{sums['traverse_cull']['bound_ms']:.4f} ms, packet "
+        f"{sums['traverse_packet']['bound_ms']:.4f} ms [{card}]")
 
     # ---- phase 6: the wavefront slice through each kernel
     mods = {"cull": traverse_cull, "packet": traverse_packet}
@@ -429,6 +460,7 @@ def wavefront_phases(scene, cfg, order, card):
         mega.KERNEL_LAUNCHES = 0
         for m in mods.values():
             m.KERNEL_LAUNCHES = 0
+        torch.cuda.reset_peak_memory_stats()
         t0 = time.time()
         acc = torch.zeros((W * H, 3), dtype=torch.float32, device=order.device)
         rays = 0.0
@@ -442,6 +474,7 @@ def wavefront_phases(scene, cfg, order, card):
             rays += W * H + a.sum() + W * H + a[:-1].sum()
         img = (acc / WSPP).cpu().numpy()
         dt = time.time() - t0
+        peak = torch.cuda.max_memory_allocated() / 2**20
         launches[route] = mod.KERNEL_LAUNCHES
         want = 2 * BOUNCES * WSPP
         others = [m.KERNEL_LAUNCHES for r, m in mods.items() if r != route]
@@ -454,7 +487,9 @@ def wavefront_phases(scene, cfg, order, card):
         log(f"phase 6 wavefront slice ({route}): bunny stand-in {W}x{H} "
             f"{WSPP} spp {BOUNCES} bounces in {dt:.3f} s, {rays:.0f} rays, "
             f"{rays / dt / 1e6:.3f} Mrays/s, {mod.KERNEL_LAUNCHES} kernel "
-            f"launches, image mean {img.mean():.5f} [{card}]")
+            f"launches ({mod.KERNEL_LAUNCHES // WSPP} per sample), peak "
+            f"device memory {peak:.1f} MiB, image mean {img.mean():.5f} "
+            f"[{card}]")
 
     # ---- phase 7: segment vs cull vs packet, bench.py's bounds
     probe = order[::64]
@@ -479,11 +514,15 @@ def wavefront_phases(scene, cfg, order, card):
         "source": f"offline_raytracer_tpu_torch/csrc/{k}.cu",
         "replaces": sources[k],
         "launches": launches[k.split("_")[1]],
-        "agreement": min(r[k]["agreement"] for r in res),
-        "max_abs_err": max(r[k]["err"] for r in res),
-        "ms": res[0][k]["ms"], "plain_ms": res[0][k]["plain_ms"],
-        "bound_ms": res[0][k]["bound_ms"], "bound_by": res[0][k]["bound_by"],
-        "library_ms": None}
+        "agreement": min(q[k]["agreement"] for q in per_query),
+        "max_abs_err": max(q[k]["err"] for q in per_query),
+        "ms": sums[k]["ms"], "plain_ms": sums[k]["plain_ms"],
+        "bound_ms": sums[k]["bound_ms"],
+        "bound_by": per_query[0][k]["bound_by"], "library_ms": None,
+        "per": "one sample: the sum over its triangle queries",
+        "queries": [{"b": q["b"], "kind": q["kind"], "live": q["live"],
+                     "group": q[k]["group"], "ms": q[k]["ms"],
+                     "bound_ms": q[k]["bound_ms"]} for q in per_query]}
         for k in ("traverse_cull", "traverse_packet")]
 
 

@@ -1,197 +1,187 @@
-// Packet walk of the implicit-heap LBVH for NVIDIA Hopper (sm_90a).
+// Tree walk of the implicit-heap LBVH for NVIDIA Hopper (sm_90a): the
+// "packet" route's triangle query.
 //
 // Replaces the TPU kernel offline_raytracer_tpu/ops/traverse_pallas.py::_kernel
-// (launched by _traverse_pallas through pl.pallas_call). A packet of rays
-// shares one node stack: an internal node slab-tests both child boxes for
-// every ray of the packet and pushes each child any ray wants, the nearer
-// one last (popped first); a leaf tests its 128 triangles against every ray
-// of the packet. Closest hit, or any hit with an early exit once every live
-// ray is resolved. The plain PyTorch version of the same contract is
+// (launched by _traverse_pallas through pl.pallas_call), a packet walk: one
+// node stack per (8, 128) block of rays. Closest hit, or any hit with an
+// early exit. The plain PyTorch version of the same contract is
 // ops/traverse.py::tri_hit_plain (a dense sweep over all leaves).
 //
-// What bounds it on this card: latency of the dependent node loads of the
-// walk (a node's 48 bytes come from L2 or L1) and divergence between the
-// rays of a packet, since a packet visits the union of the leaves its rays
-// want. Not bytes: the tree and the coefficients stay resident in the 50 MB
-// L2.
+// What bounds it on this card: per live ray, a walk of ~2 log2(leaves)
+// slab tests and, per leaf reached, 16 sub-box tests and the triangles of
+// the boxes hit, all from the tables resident in the 50 MB L2. Bytes are
+// the rays in and (t, slot) out: a few µs at 3.35 TB/s. What limits it is
+// the latency of each ray's chain of dependent node loads and how many rays
+// are in flight to hide it.
 //
-// The design, simply for now:
-// - one warp is one packet of 32 rays (the TPU packet is a (8, 128) block);
-//   the stack is uniform across the warp, so it lives in shared memory,
-//   written by lane 0; push decisions come from __any_sync, and the nearer
-//   child is the one with the smaller warp minimum of entry distances;
-// - a leaf's coefficients are read with warp-uniform addresses, so each
-//   16-byte load is one broadcast;
-// - pruning uses each ray's own best t, so the packet size does not change
-//   the result: every leaf any ray may need is visited.
-//
-// Numerics: the slab test is only a cull, and is made conservative as in
-// csrc/mega.cu (a NaN slab never rejects, a relative slack of 1e-5 on both
-// ends), so the walk never skips a leaf the dense sweep would hit. The
-// triangle test has the plain version's expression order, built with
-// -fmad=false and IEEE division, so t, u and v are bit-identical to it. The
-// winner is the least (t, slot) among hits with t_min <= t < t_far, whatever
-// the visit order. Any hit: the first hit found resolves the ray.
+// The design is not the TPU's packet walk: a packet with a shared node
+// stack visits the union of the leaves its rays want, and a late bounce's
+// few live rays would sit in a few warps. Instead:
+// - a group of G lanes carries one ray (template G; the wrapper picks it
+//   from the number of rays, ops/traverse.py group_size), so few live rays
+//   still launch many lanes;
+// - each group walks its own ray's path, stackless: the heap's node ids give
+//   each ancestor and sibling, and one 32-bit trail marks the levels whose
+//   far child is still to visit; on the way back the far child's box is
+//   tested again against the bound as it stands then (as csrc/mega.cu does);
+// - a leaf is swept by the shared leaf sweep (leaf_sweep.cuh): 16 sub-boxes
+//   first, then only the hit boxes' triangles, spread over the group;
+// - a dead ray (t_far <= t_min) or a parked one (an origin coordinate at or
+//   beyond 1e7) does no work and returns a miss;
+// - registers are not capped: both kernels compile to 42-53 registers with
+//   no spills, and a cap for 8 blocks per SM (the segment kernel's) was no
+//   faster (PERF.md).
+// The G lanes of a group walk the same node sequence; only lane 0 writes.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "leaf_sweep.cuh"
 
 namespace {
 
-constexpr int THREADS = 128;            // 4 packets per block
-constexpr int WARPS = THREADS / 32;
-constexpr int STACK = 64;               // > tree depth + 1 (host checks)
-constexpr int LEAF = 128;
-constexpr float SLACK = 1.00001f;       // relative slack of the cull
-constexpr unsigned FULL = 0xffffffffu;
+using namespace leaf_sweep;
+
+constexpr int THREADS = 128;            // per block
 
 struct Params {
-  const float* ro;        // (Rp, 3)
-  const float* rd;        // (Rp, 3)
-  const float* t_far;     // (Rp,)
-  const float4* tri;      // (S, 3) float4: [s1 c1] [s2 c2] [n cw]
+  const float* ro;        // (R, 3)
+  const float* rd;        // (R, 3)
+  const float* t_far;     // (R,) or null: no bound
   const float* nodes;     // (n_internal, 12) child AABBs
-  float* t_out;           // (Rp,)
-  int* slot_out;          // (Rp,)
-  int n_leaves, m_occ;
-  float t_min;
+  Leaves lv;
+  float* t_out;           // (R,) hit t (t_min for an any hit), inf on a miss
+  int* slot_out;          // (R,) slot, -1 on a miss
+  int R, n_leaves, m_occ;
 };
 
-// Conservative slab test of one box (min xyz, max xyz): may the box hold a
-// hit nearer than lim? near = entry distance.
-__device__ __forceinline__ bool slab(const float* box, float ox, float oy, float oz,
-                                     float ix, float iy, float iz, float lim,
-                                     float t_min, float& near) {
-  near = INFINITY;
-  if (!(lim > t_min)) return false;             // dead or resolved ray
-  const float b0 = __ldg(&box[0]), b3 = __ldg(&box[3]);
-  if (!(b0 <= b3)) return false;                // inverted: empty subtree
-  const float lo[3] = {b0, __ldg(&box[1]), __ldg(&box[2])};
-  const float hi[3] = {b3, __ldg(&box[4]), __ldg(&box[5])};
-  const float oo[3] = {ox, oy, oz};
-  const float ii[3] = {ix, iy, iz};
-  float tn = -INFINITY, tf = INFINITY;
-#pragma unroll
-  for (int k = 0; k < 3; ++k) {
-    const float a = (lo[k] - oo[k]) * ii[k];
-    const float b = (hi[k] - oo[k]) * ii[k];
-    if (a != a || b != b) continue;             // ray in the slab's plane
-    tn = fmaxf(tn, fminf(a, b));
-    tf = fminf(tf, fmaxf(a, b));
+// A child box of an internal node (half 0: child 2i+1, half 1: child 2i+2).
+__device__ __forceinline__ bool child_slab(const float* nodes, int node, int half, const Ray& r,
+                                           float lim, float& near) {
+  const float* c = nodes + (size_t)node * 12 + 6 * half;
+  return slab(__ldg(c), __ldg(c + 1), __ldg(c + 2), __ldg(c + 3), __ldg(c + 4), __ldg(c + 5), r,
+              lim, near);
+}
+
+// Walk the heap (children of node i at 2i+1 and 2i+2, leaves from
+// n_leaves - 1 on), nearer child first, pruning against the best t so far
+// (closest hit) or t_far (any hit). No stack: bit L of `trail` says the far
+// child at depth L is still to visit. Returns the any-hit slot (NO_SLOT:
+// none); closest hits land in b. Every lane of the group walks alike.
+template <bool ANY, int G>
+__device__ int walk(const Params& p, const Group<G>& g, const Ray& r, float t_far, Best& b) {
+  if (p.n_leaves == 1) {
+    if (ANY) return leaf_anyhit(p.lv, g, 0, r, t_far);
+    leaf_closest(p.lv, g, 0, r, t_far, b);
+    return NO_SLOT;
   }
-  const float nr = fmaxf(tn, 0.f);
-  const bool want = (tf * SLACK >= nr) && (nr <= lim * SLACK);
-  if (want) near = nr;
-  return want;
-}
-
-__device__ __forceinline__ float warp_min(float x) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) x = fminf(x, __shfl_xor_sync(FULL, x, off));
-  return x;
-}
-
-template <bool ANY>
-__device__ __forceinline__ void leaf_sweep(const float4* tri, int leaf, float ox,
-                                           float oy, float oz, float dx, float dy,
-                                           float dz, float t_min, float& best_t,
-                                           int& best_i) {
-  const int s0 = leaf * LEAF;
-  const float4* c = tri + (size_t)s0 * 3;
-  for (int j = 0; j < LEAF; ++j) {
-    const float4 c1 = __ldg(&c[3 * j]), c2 = __ldg(&c[3 * j + 1]);
-    const float4 cn = __ldg(&c[3 * j + 2]);
-    const float o_w = ox * cn.x + oy * cn.y + oz * cn.z + cn.w;
-    const float d_w = dx * cn.x + dy * cn.y + dz * cn.z;
-    const float o_u = ox * c1.x + oy * c1.y + oz * c1.z + c1.w;
-    const float d_u = dx * c1.x + dy * c1.y + dz * c1.z;
-    const float o_v = ox * c2.x + oy * c2.y + oz * c2.z + c2.w;
-    const float d_v = dx * c2.x + dy * c2.y + dz * c2.z;
-    const bool ok_w = fabsf(d_w) > 1e-12f;
-    const float t = -o_w / (ok_w ? d_w : 1.f);
-    const float u = o_u + t * d_u;
-    const float v = o_v + t * d_v;
-    const int s = s0 + j;
-    const bool ok = ok_w && u >= 0.f && v >= 0.f && u + v <= 1.f && t >= t_min;
-    if (ANY) {
-      if (ok && t < best_t) { best_t = t_min; best_i = s; return; }
-    } else if (ok && (t < best_t || (t == best_t && s < best_i))) {
-      best_t = t; best_i = s;
-    }
-  }
-}
-
-template <bool ANY>
-__global__ void __launch_bounds__(THREADS) packet_kernel(Params p) {
-  __shared__ int stack[WARPS][STACK];
-  const int lane = threadIdx.x & 31;
-  int* st = stack[threadIdx.x >> 5];
-  const int i = blockIdx.x * THREADS + threadIdx.x;   // Rp % THREADS == 0
-  const float ox = p.ro[3 * i], oy = p.ro[3 * i + 1], oz = p.ro[3 * i + 2];
-  const float dx = p.rd[3 * i], dy = p.rd[3 * i + 1], dz = p.rd[3 * i + 2];
-  const float ix = 1.f / dx, iy = 1.f / dy, iz = 1.f / dz;
-  const float tf = p.t_far[i];
-  float best_t = tf;
-  int best_i = -1;
   const int first_leaf = p.n_leaves - 1;
-
-  if (lane == 0) st[0] = 0;
-  int sp = 1;                                   // warp-uniform
-  __syncwarp();
-  while (sp > 0) {
-    if (ANY && !__any_sync(FULL, best_i < 0 && tf > p.t_min)) break;
-    const int node = st[sp - 1];
-    --sp;
-    __syncwarp();                               // all lanes read before a push
-    if (node >= first_leaf) {
+  int node = 0, depth = 0;
+  unsigned trail = 0;
+  while (true) {
+    if (node < first_leaf) {
+      float n1 = 0.f, n2 = 0.f;
+      const bool h1 = child_slab(p.nodes, node, 0, r, b.t, n1);
+      const bool h2 = child_slab(p.nodes, node, 1, r, b.t, n2);
+      if (h1 || h2) {
+        ++depth;
+        if (h1 && h2) {
+          trail |= 1u << depth;
+          node = (n1 <= n2) ? 2 * node + 1 : 2 * node + 2;
+        } else {
+          node = h1 ? 2 * node + 1 : 2 * node + 2;
+        }
+        continue;
+      }
+    } else {
       const int leaf = node - first_leaf;
-      if (leaf < p.m_occ && best_t > p.t_min)
-        leaf_sweep<ANY>(p.tri, leaf, ox, oy, oz, dx, dy, dz, p.t_min, best_t, best_i);
-      continue;
+      if (leaf < p.m_occ) {
+        if (ANY) {
+          const int s = leaf_anyhit(p.lv, g, leaf, r, t_far);
+          if (s != NO_SLOT) return s;
+        } else {
+          leaf_closest(p.lv, g, leaf, r, t_far, b);
+        }
+      }
     }
-    const float* c = p.nodes + (size_t)node * 12;
-    float n1, n2;
-    const bool w1 = slab(c, ox, oy, oz, ix, iy, iz, best_t, p.t_min, n1);
-    const bool w2 = slab(c + 6, ox, oy, oz, ix, iy, iz, best_t, p.t_min, n2);
-    const bool any1 = __any_sync(FULL, w1), any2 = __any_sync(FULL, w2);
-    const float m1 = warp_min(n1), m2 = warp_min(n2);
-    const int c1 = 2 * node + 1;
-    const bool first1 = m1 <= m2;
-    const int near_c = first1 ? c1 : c1 + 1, far_c = first1 ? c1 + 1 : c1;
-    const bool push_far = first1 ? any2 : any1;
-    const bool push_near = first1 ? any1 : any2;
-    if (push_far) { if (lane == 0) st[sp] = far_c; ++sp; }
-    if (push_near) { if (lane == 0) st[sp] = near_c; ++sp; }
-    __syncwarp();
+    // back to the deepest far child still to visit whose box the bound
+    // has not pruned since
+    while (true) {
+      if (trail == 0) return NO_SLOT;
+      const int L = 31 - __clz(trail);
+      trail &= ~(1u << L);
+      const int anc = ((node + 1) >> (depth - L)) - 1;
+      node = (anc & 1) ? anc + 1 : anc - 1;
+      depth = L;
+      float nn;
+      if (child_slab(p.nodes, (node - 1) >> 1, (node & 1) ? 0 : 1, r, b.t, nn)) break;
+    }
   }
-  p.t_out[i] = best_t;
-  p.slot_out[i] = best_i;
+}
+
+template <bool ANY, int G>
+__global__ void __launch_bounds__(THREADS) packet_kernel(Params p) {
+  const Group<G> g;
+  const int i = blockIdx.x * (THREADS / G) + threadIdx.x / G;
+  if (i >= p.R) return;                         // the whole group leaves
+  const Ray r = load_ray(p.ro, p.rd, i);
+  const float t_far = p.t_far ? p.t_far[i] : INFINITY;
+  float t_out = INFINITY;
+  int s_out = -1;
+  if (p.m_occ > 0 && live(r, t_far, p.lv.t_min)) {
+    Best b;
+    b.t = t_far;
+    b.slot = NO_SLOT;
+    const int s = walk<ANY, G>(p, g, r, t_far, b);
+    if (ANY && s != NO_SLOT) { t_out = p.lv.t_min; s_out = s; }
+    if (!ANY && b.slot != NO_SLOT) { t_out = b.t; s_out = b.slot; }
+  }
+  if (g.lane == 0) {
+    p.t_out[i] = t_out;
+    p.slot_out[i] = s_out;
+  }
+}
+
+template <bool ANY, int G>
+int launch(const Params& p, cudaStream_t s) {
+  constexpr int rays_per_block = THREADS / G;
+  const int blocks = (p.R + rays_per_block - 1) / rays_per_block;
+  packet_kernel<ANY, G><<<blocks, THREADS, 0, s>>>(p);
+  return (int)cudaGetLastError();
+}
+
+template <bool ANY>
+int launch_group(const Params& p, int group, cudaStream_t s) {
+  switch (group) {
+    case 1: return launch<ANY, 1>(p, s);
+    case 2: return launch<ANY, 2>(p, s);
+    case 4: return launch<ANY, 4>(p, s);
+    case 8: return launch<ANY, 8>(p, s);
+    case 16: return launch<ANY, 16>(p, s);
+    case 32: return launch<ANY, 32>(p, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 
+// group: lanes per ray, one of 1, 2, 4, 8, 16, 32. t_far may be null.
 extern "C" int traverse_packet(
-    const void* ro, const void* rd, const void* t_far, const void* tri,
-    const void* nodes, void* t_out, void* slot_out, int Rp, int n_leaves,
-    int m_occ, int any_hit, float t_min, void* stream) {
+    const void* ro, const void* rd, const void* t_far, const void* tri_lm,
+    const void* sub, const void* nodes, void* t_out, void* slot_out, int R,
+    int n_leaves, int m_occ, int any_hit, int group, float t_min, void* stream) {
+  if (R <= 0) return 0;
+  if (n_leaves < 1) return (int)cudaErrorInvalidValue;
   Params p;
   p.ro = static_cast<const float*>(ro);
   p.rd = static_cast<const float*>(rd);
   p.t_far = static_cast<const float*>(t_far);
-  p.tri = static_cast<const float4*>(tri);
   p.nodes = static_cast<const float*>(nodes);
+  p.lv.tri = static_cast<const float4*>(tri_lm);
+  p.lv.sub = static_cast<const float4*>(sub);
+  p.lv.t_min = t_min;
   p.t_out = static_cast<float*>(t_out);
   p.slot_out = static_cast<int*>(slot_out);
+  p.R = R;
   p.n_leaves = n_leaves;
   p.m_occ = m_occ;
-  p.t_min = t_min;
-  if (Rp <= 0) return 0;
-  if (Rp % THREADS) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (any_hit) {
-    packet_kernel<true><<<Rp / THREADS, THREADS, 0, s>>>(p);
-  } else {
-    packet_kernel<false><<<Rp / THREADS, THREADS, 0, s>>>(p);
-  }
-  return (int)cudaGetLastError();
+  return any_hit ? launch_group<true>(p, group, s) : launch_group<false>(p, group, s);
 }

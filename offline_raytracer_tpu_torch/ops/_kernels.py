@@ -2,19 +2,20 @@
 
 Each source is compiled by ``nvcc`` for Hopper (``sm_90a``) into a shared
 library with a plain C entry point, cached under ``build/kernels/`` at the
-repository root keyed on a hash of the source and the flags, and loaded
-with ctypes. No fast-math flags: the kernels rely on IEEE division, on
-``inf`` from ``1/0`` in slab tests and on exact ``sqrtf``. All three are
-also built with ``-fmad=false``: no a*b+c is contracted to an FMA, so the
-traversal kernels' triangle test rounds exactly as the plain PyTorch
-version's does, and the segment kernel's instantiations for each group
-size round alike (bitwise equal outputs). ``build_all`` starts one nvcc
-per source at once.
+repository root keyed on a hash of the source, the headers beside it
+(``csrc/*.cuh``) and the flags, and loaded with ctypes. No fast-math
+flags: the kernels rely on IEEE division, on ``inf`` from ``1/0`` in slab
+tests and on exact ``sqrtf``. All three are also built with
+``-fmad=false``: no a*b+c is contracted to an FMA, so the traversal
+kernels' triangle test rounds exactly as the plain PyTorch version's does,
+and each kernel's instantiations for each group size round alike (bitwise
+equal outputs). ``build_all`` starts one nvcc per source at once.
 """
 
 from __future__ import annotations
 
 import ctypes
+import glob
 import hashlib
 import os
 import shutil
@@ -35,8 +36,8 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
     "mega": ("mega_segment",
              [_P] * 10 + [_I] * 16 + [_F] * 3 + [_P]),
-    "traverse_cull": ("traverse_cull", [_P] * 9 + [_I] * 3 + [_F, _P]),
-    "traverse_packet": ("traverse_packet", [_P] * 7 + [_I] * 4 + [_F, _P]),
+    "traverse_cull": ("traverse_cull", [_P] * 8 + [_I] * 5 + [_F, _P]),
+    "traverse_packet": ("traverse_packet", [_P] * 8 + [_I] * 5 + [_F, _P]),
 }
 # flags a library adds to NVCC_FLAGS
 EXTRA_FLAGS = {
@@ -66,9 +67,11 @@ def build(name: str) -> dict:
     """
     src = os.path.join(SRC_DIR, f"{name}.cu")
     flags = NVCC_FLAGS + EXTRA_FLAGS.get(name, [])
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(
-            f.read() + " ".join(flags).encode()).hexdigest()[:16]
+    digest = hashlib.sha256(" ".join(flags).encode())
+    for path in [src] + sorted(glob.glob(os.path.join(SRC_DIR, "*.cuh"))):
+        with open(path, "rb") as f:
+            digest.update(f.read())
+    digest = digest.hexdigest()[:16]
     out = os.path.join(BUILD_DIR, f"{name}_{digest}.so")
     if os.path.exists(out):
         return {"path": out, "seconds": 0.0, "log": "", "cached": True}

@@ -39,7 +39,7 @@ import torch
 
 from offline_raytracer_tpu_torch.ops.bvh import SUB
 from offline_raytracer_tpu_torch.ops.lights import sample_lights
-from offline_raytracer_tpu_torch.ops.traverse import tri_tables
+from offline_raytracer_tpu_torch.ops.traverse import leaf_major, tri_tables
 from offline_raytracer_tpu_torch.utils import rng
 
 INF = 3.4e38
@@ -189,29 +189,22 @@ class MegaTables:
     world_max: torch.Tensor  # (3,)
 
 
-def leaf_major(tri):
-    """(S, 12) coefficient rows -> the kernel's leaf-major (S / 128, 3, 128,
-    4) copy: per leaf 128 float4 [n cw], then 128 [s1 c1], then 128 [s2
-    c2], so that consecutive lanes read consecutive slots' float4."""
-    return (tri.reshape(-1, LANE, 3, 4)[:, :, [2, 0, 1]]
-            .permute(0, 2, 1, 3).contiguous())
-
-
 def prepare_tables(scene, cfg) -> MegaTables:
     consts, meta = pack_consts(scene, cfg)
     dev = consts.device
     bvh = scene.tri_bvh
     if scene.triangles.mat.shape[0] > 0:
+        # the traversal kernels' tables: the BVH's sub-boxes, 8 floats a
+        # row (min xyz, max xyz, 2 zeros), and the leaf-major copy
         tt = tri_tables(bvh)
-        tri, nodes = tt.tri, tt.nodes
-        # the BVH's sub-boxes, 8 floats a row (min xyz, max xyz, 2 zeros)
-        sub = torch.nn.functional.pad(bvh.sub_bounds, (0, 2)).contiguous()
+        tri, tri_lm, sub, nodes = tt.tri, tt.tri_lm, tt.sub, tt.nodes
         tri_mat = bvh.mat.to(torch.int32)
         lb = bvh.leaf_bounds
         wmin, wmax = lb[0:3].min(1).values, lb[3:6].max(1).values
         n_leaves, m_occ = bvh.n_leaves, bvh.m_occ
     else:
         tri = torch.zeros((LANE, 12), dtype=torch.float32, device=dev)
+        tri_lm = leaf_major(tri)
         tri_mat = torch.zeros((LANE,), dtype=torch.int32, device=dev)
         sub = torch.zeros((1, SUB, 8), dtype=torch.float32, device=dev)
         nodes = torch.zeros((1, 12), dtype=torch.float32, device=dev)
@@ -220,7 +213,7 @@ def prepare_tables(scene, cfg) -> MegaTables:
         n_leaves, m_occ = 1, 0
     return MegaTables(
         consts=consts, meta=meta, tri=tri.contiguous(),
-        tri_lm=leaf_major(tri), sub=sub, tri_mat=tri_mat.contiguous(),
+        tri_lm=tri_lm, sub=sub, tri_mat=tri_mat.contiguous(),
         nodes=nodes.contiguous(),
         n_leaves=n_leaves, m_occ=m_occ, world_min=wmin, world_max=wmax)
 

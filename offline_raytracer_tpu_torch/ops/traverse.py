@@ -7,7 +7,9 @@ indexes the leaf-ordered arrays (``bvh.tri_index``, ``bvh.mat``), -1 is a
 miss and t is +inf there. The winner is the least (t, slot) among hits with
 ``t_min <= t < t_far``; that rule does not depend on visit order, so every
 implementation gives the same answer. In any-hit mode only ``slot >= 0``
-counts (t is ``t_min`` on a hit).
+counts (t is ``t_min`` on a hit). A ray is dead, and misses, when its
+``t_far <= t_min`` or when its origin is parked (a coordinate at or beyond
+``PARKED``, where the integrator parks finished paths).
 
 Three implementations:
 
@@ -17,10 +19,15 @@ Three implementations:
   JAX package's jnp packet walk (``traverse.bvh_hit_ts``), which agrees
   with it up to exact ties; an eager node-by-node walk would wait on the
   host at every node.
-- ``traverse_cull.bvh_hit_ts_cull``: dense leaf cull, then the listed-leaf
-  sweep kernel (``csrc/traverse_cull.cu``).
-- ``traverse_packet.bvh_hit_ts_packet``: the warp-packet tree walk kernel
+- ``traverse_cull.bvh_hit_ts_cull``: the cull-and-sweep kernel
+  (``csrc/traverse_cull.cu``): each row of rays culls the leaf boxes and
+  sweeps the leaves it listed.
+- ``traverse_packet.bvh_hit_ts_packet``: the tree walk kernel
   (``csrc/traverse_packet.cu``).
+
+Both kernels carry each ray with a group of G lanes (``group_size`` picks G
+from the number of rays) and sweep a leaf through its 16 sub-boxes
+(``csrc/leaf_sweep.cuh``); any G gives the same outputs.
 
 Traversal is search only: rays and bounds are detached, and the hit that
 shading uses (and differentiates) is recomputed by ``intersect.refine_hit``.
@@ -36,7 +43,13 @@ from offline_raytracer_tpu_torch.ops import intersect as I
 from offline_raytracer_tpu_torch.ops.bvh import LEAF
 
 INF = float("inf")
-PARK = 1e8          # origin of pad rays, far outside any scene
+PARKED = 1e7        # an origin coordinate this far out: a parked, dead ray
+GROUPS = (1, 2, 4, 8, 16, 32)   # lanes per ray the kernels are built for
+# the lanes-per-ray rule of both kernels (group_size): aim a query's rays
+# at GROUP_LANES lanes, at most GROUP_MAX per ray (tuned on the H100,
+# PERF.md)
+GROUP_LANES = 1 << 22
+GROUP_MAX = 16
 _BIG = torch.iinfo(torch.int64).max
 
 
@@ -46,6 +59,8 @@ class TriTables:
     scene (``tri_tables``)."""
 
     tri: torch.Tensor          # (S, 12) float32 coefficient row per slot
+    tri_lm: torch.Tensor       # (S / 128, 3, 128, 4) leaf-major copy (kernels)
+    sub: torch.Tensor | None   # (S / 128, SUB, 8) sub-leaf boxes (kernels)
     nodes: torch.Tensor        # (n_internal, 12) child AABBs per heap node
     leaf_bounds: torch.Tensor  # (6, L_lane) leaf AABB rows
     tri_index: torch.Tensor    # (S,) int32 original triangle id, -1 pad
@@ -53,14 +68,46 @@ class TriTables:
     m_occ: int                 # occupied leaves
 
 
+def leaf_major(tri):
+    """(S, 12) coefficient rows -> the kernels' leaf-major (S / 128, 3, 128,
+    4) copy: per leaf 128 float4 [n cw], then 128 [s1 c1], then 128 [s2
+    c2], so that consecutive lanes read consecutive slots' float4."""
+    return (tri.reshape(-1, LEAF, 3, 4)[:, :, [2, 0, 1]]
+            .permute(0, 2, 1, 3).contiguous())
+
+
 def tri_tables(bvh) -> TriTables:
+    """The query tables of a TriBVH; ``sub`` is None for a BVH without
+    sub-boxes (the kernels refuse it, the plain sweep does not need it)."""
     m_pad = bvh.planes.shape[1]
+    tri = bvh.planes.permute(1, 2, 0).reshape(m_pad * LEAF, 12).contiguous()
+    sub = (None if bvh.sub_bounds is None else torch.nn.functional.pad(
+        bvh.sub_bounds, (0, 2)).contiguous())
     return TriTables(
-        tri=bvh.planes.permute(1, 2, 0).reshape(m_pad * LEAF, 12)
-        .contiguous(),
+        tri=tri, tri_lm=leaf_major(tri), sub=sub,
         nodes=bvh.child_rows[:, :12].contiguous(),
-        leaf_bounds=bvh.leaf_bounds, tri_index=bvh.tri_index,
+        leaf_bounds=bvh.leaf_bounds.contiguous(), tri_index=bvh.tri_index,
         n_leaves=bvh.n_leaves, m_occ=bvh.m_occ)
+
+
+def live_rays(ro, t_far, t_min):
+    """(R,) bool: the rays a query asks anything of (the contract's live
+    rays: not parked, t_far > t_min)."""
+    live = ro.abs().amax(1) < PARKED
+    return live if t_far is None else live & (t_far > t_min)
+
+
+def group_size(n_rays: int) -> int:
+    """Lanes per ray for a query of ``n_rays`` rays: a power of two,
+    enough that the rays fill GROUP_LANES lanes, at most GROUP_MAX (a
+    leaf's work, 16 sub-box tests and then 8 triangles per box hit, fills
+    no more lanes). Dead rays cost little, so the rays are not counted
+    alive: a count costs a sync per query, more than a G fitted to the live
+    rays gains (PERF.md). Any choice gives the same outputs."""
+    g = 1
+    while g < GROUP_MAX and max(n_rays, 1) * g * 2 <= GROUP_LANES:
+        g *= 2
+    return g
 
 
 def tri_hit_plain(tables: TriTables, ro, rd, t_min, t_far=None,
@@ -72,6 +119,7 @@ def tri_hit_plain(tables: TriTables, ro, rd, t_min, t_far=None,
     S = tables.m_occ * LEAF
     bound = (torch.full((R,), INF, dtype=torch.float32, device=dev)
              if t_far is None else t_far)
+    bound = torch.where(live_rays(ro, t_far, t_min), bound, 0.0)
     chunk = max(LEAF, min(S, ((1 << 24) // max(R, 1)) // LEAF * LEAF))
     best = torch.full((R,), _BIG, dtype=torch.int64, device=dev)
     ox, oy, oz = (ro[:, k:k + 1] for k in range(3))
@@ -114,12 +162,22 @@ def tri_hit_plain(tables: TriTables, ro, rd, t_min, t_far=None,
 
 def check_query(tables: TriTables, ro, rd, t_far, device_type):
     """Device, dtype, shape and contiguity checks of a kernel query."""
+    from offline_raytracer_tpu_torch.ops.bvh import SUB
+
     R = ro.shape[0]
     if ro.device.type != device_type:
         raise ValueError(f"needs {device_type} tensors, got {ro.device}")
+    if tables.sub is None:
+        raise ValueError("the tables have no sub-boxes: build the BVH with "
+                         "ops/bvh.build_tri_bvh or convert.scene_from_arrays")
+    n_leaf_rows = tables.tri.shape[0] // LEAF
     items = [("ro", ro, (R, 3)), ("rd", rd, (R, 3)),
-             ("tri", tables.tri, (tables.tri.shape[0], 12)),
-             ("nodes", tables.nodes, (tables.nodes.shape[0], 12))]
+             ("tri", tables.tri, (n_leaf_rows * LEAF, 12)),
+             ("tri_lm", tables.tri_lm, (n_leaf_rows, 3, LEAF, 4)),
+             ("sub", tables.sub, (n_leaf_rows, SUB, 8)),
+             ("nodes", tables.nodes, (tables.nodes.shape[0], 12)),
+             ("leaf_bounds", tables.leaf_bounds,
+              (6, tables.leaf_bounds.shape[1]))]
     if t_far is not None:
         items.append(("t_far", t_far, (R,)))
     for name, x, shape in items:
@@ -131,24 +189,36 @@ def check_query(tables: TriTables, ro, rd, t_far, device_type):
             raise ValueError(f"{name}: shape {tuple(x.shape)}, want {shape}")
         if not x.is_contiguous():
             raise ValueError(f"{name} is not contiguous")
-    if tables.m_occ * LEAF > tables.tri.shape[0]:
+    if tables.m_occ > n_leaf_rows:
         raise ValueError("tri holds fewer slots than m_occ leaves")
+    if not 1 <= tables.n_leaves < 1 << 31:
+        raise ValueError(f"n_leaves {tables.n_leaves} outside [1, 2**31)")
 
 
-def pad_rays(ro, rd, t_far, multiple: int):
-    """Rays padded to a multiple of ``multiple`` for a kernel: pad rays
-    start far outside the scene, point along +x and are dead (t_far 0).
-    ``t_far`` None means no bound. -> contiguous (ro, rd, t_far)."""
+def launch_query(name: str, ro, rd, t_min, t_far, any_hit: bool,
+                 group: int, table_ptrs, ints):
+    """Launch traversal kernel ``name`` (``csrc/<name>.cu``) on the current
+    stream, no sync. Both C entry points take (ro, rd, t_far or null, three
+    table pointers, t out, slot out, R, two ints, any_hit, group, t_min,
+    stream). -> (t (R,), slot (R,)): t is inf on a miss and t_min on an
+    any hit, slot -1 on a miss."""
+    from offline_raytracer_tpu_torch.ops import _kernels
+
+    if group not in GROUPS:
+        raise ValueError(f"group {group} not in {GROUPS}")
+    fn = _kernels.load(name)
     R = ro.shape[0]
-    f32 = dict(dtype=torch.float32, device=ro.device)
-    pad = -R % multiple
-    if t_far is None:
-        t_far = torch.full((R,), INF, **f32)
-    ro_p = torch.cat([ro, torch.full((pad, 3), PARK, **f32)])
-    rd_p = torch.cat([rd, torch.tensor([[1.0, 0.0, 0.0]], **f32).expand(
-        pad, 3)])
-    tf_p = torch.cat([t_far, torch.zeros((pad,), **f32)])
-    return ro_p.contiguous(), rd_p.contiguous(), tf_p.contiguous()
+    t = torch.empty((R,), dtype=torch.float32, device=ro.device)
+    slot = torch.empty((R,), dtype=torch.int32, device=ro.device)
+    with torch.cuda.device(ro.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(ro.data_ptr(), rd.data_ptr(),
+                 None if t_far is None else t_far.data_ptr(), *table_ptrs,
+                 t.data_ptr(), slot.data_ptr(), R, *ints, int(any_hit),
+                 group, float(t_min), stream)
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+    return t, slot
 
 
 def coherence_order(tables: TriTables, ro, rd):

@@ -1,19 +1,21 @@
 """Cull-and-sweep triangle query (counterpart of
 ``offline_raytracer_tpu/ops/traverse_cull.py``).
 
-1. Dense cull (``block_leaf_lists``, plain torch as in the JAX package):
-   slab-test every ray against every leaf box and reduce the wanted flags
-   over each 128-ray row to that row's list of wanted leaves, in leaf-id
-   order, and its length. Done in chunks of rays so no (R, L) temporary
-   outgrows a few tens of MB.
-2. Listed-leaf sweep (``csrc/traverse_cull.cu``): one CUDA block per row,
-   one thread per ray; the block walks its row's list and sweeps each
-   listed leaf's 128 triangles.
+On the TPU the query is two steps: a dense cull of every ray against every
+leaf box, reduced to one list of wanted leaves per 128-ray row in HBM
+(``block_leaf_lists``, kept here in plain torch as the JAX package has it),
+then the kernel's sweep of each row's listed leaves. The kernel here
+(``csrc/traverse_cull.cu``) does both in one launch: each block takes a
+row of rays, culls them against the leaf boxes itself (conservatively: a
+NaN slab never rejects, and a relative slack of 1e-5 widens both ends),
+ORs the wanted bits over the row in shared memory and sweeps the listed
+leaves in leaf-id order, a group of G lanes per ray and each leaf through
+its 16 sub-boxes (``csrc/leaf_sweep.cuh``). ``row_cull_plain`` is the
+plain version of that cull.
 
-The host sorts rows by list length, longest first, so the longest rows
-start first. ``bvh_hit_ts_cull`` takes the kernel for CUDA tensors and the
-plain dense sweep (``traverse.tri_hit_plain``) for CPU tensors; there is
-no fallback from one to the other. Contract: ``ops/traverse.py``.
+``bvh_hit_ts_cull`` takes the kernel for CUDA tensors and the plain dense
+sweep (``traverse.tri_hit_plain``) for CPU tensors; there is no fallback
+from one to the other. Contract: ``ops/traverse.py``.
 """
 
 from __future__ import annotations
@@ -21,11 +23,13 @@ from __future__ import annotations
 import torch
 
 from offline_raytracer_tpu_torch.ops.traverse import (
-    TriTables, check_query, pad_rays, tri_hit_plain)
+    TriTables, check_query, group_size, launch_query, live_rays,
+    tri_hit_plain)
 
-LANE = 128          # rays per row (one list, one CUDA block)
-MAX_CULL_LEAVES = 4096   # beyond this the (R, L) cull outgrows a tree walk
+LANE = 128          # rays per row of the JAX package's lists
+MAX_CULL_LEAVES = 4096   # the kernel's row bitmap: 128 words of shared memory
 CHUNK_RAYS = 16384
+SLACK = 1.00001     # relative slack of the conservative cull
 
 # launches of the CUDA kernel; chip runs read it to prove a route went
 # through the kernel
@@ -39,7 +43,8 @@ def cull_ok(tables: TriTables) -> bool:
 
 def block_leaf_lists(leaf_bounds, m_occ: int, ro, rd, t_bound,
                      block: int = LANE):
-    """Dense cull -> per-block wanted-leaf lists.
+    """Dense cull -> per-block wanted-leaf lists (the JAX package's list
+    step, exact slab test).
 
     ro, rd: (R, 3) with R a multiple of ``block``; ``t_bound``: (R,) far
     bound (inf for closest hit, the light distance for shadow rays, <= 0
@@ -78,58 +83,62 @@ def block_leaf_lists(leaf_bounds, m_occ: int, ro, rd, t_bound,
     return lists, counts
 
 
-def cull_inputs(tables: TriTables, ro, rd, t_far=None):
-    """Host half of the query: rays padded to whole rows (pad rays parked
-    far outside the scene, dead), per-row lists and counts, and the rows
-    in launch order (longest list first).
-
-    Returns (ro_p (Rp, 3), rd_p (Rp, 3), tf_p (Rp,), lists (Rp/128, L)
-    int32, counts (Rp/128,) int32, rows (Rp/128,) int32).
-    """
-    ro_p, rd_p, tf_p = pad_rays(ro, rd, t_far, LANE)
-    lists, counts = block_leaf_lists(tables.leaf_bounds, tables.m_occ, ro_p,
-                                     rd_p, tf_p)
-    counts = counts[:, 0].contiguous()
-    rows = torch.argsort(counts, descending=True, stable=True).to(
-        torch.int32)
-    return ro_p, rd_p, tf_p, lists.contiguous(), counts, rows.contiguous()
-
-
-def sweep_cuda(tables: TriTables, inputs, t_min, any_hit: bool = False):
-    """Launch the listed-leaf sweep kernel (csrc/traverse_cull.cu) on the
-    host half's output (``cull_inputs``): -> (t (Rp,), slot (Rp,)) raw,
-    t_far where nothing was hit. Launches on the current stream, no sync."""
-    global KERNEL_LAUNCHES
-    from offline_raytracer_tpu_torch.ops import _kernels
-
-    ro_p, rd_p, tf_p, lists, counts, rows = inputs
-    fn = _kernels.load("traverse_cull")
-    Rp = ro_p.shape[0]
-    t = torch.empty((Rp,), dtype=torch.float32, device=ro_p.device)
-    slot = torch.empty((Rp,), dtype=torch.int32, device=ro_p.device)
-    with torch.cuda.device(ro_p.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(ro_p.data_ptr(), rd_p.data_ptr(), tf_p.data_ptr(),
-                 lists.data_ptr(), counts.data_ptr(), rows.data_ptr(),
-                 tables.tri.data_ptr(), t.data_ptr(), slot.data_ptr(),
-                 Rp // LANE, lists.shape[1], int(any_hit), float(t_min),
-                 stream)
-    if err != 0:
-        raise RuntimeError(f"traverse_cull kernel launch failed: CUDA "
-                           f"error {err}")
-    KERNEL_LAUNCHES += 1
-    return t, slot
+def row_cull_plain(tables: TriTables, ro, rd, t_min, t_far=None,
+                   rays_per_row: int = LANE):
+    """The kernel's row cull in plain torch: (ceil(R / rays_per_row),
+    m_occ) bool, the leaves any live ray of each row may hit, by the
+    kernel's conservative slab test (an axis whose slab is NaN, a ray in a
+    face's plane, is skipped; both ends widened by ``SLACK``; an inverted
+    box never wanted). A row's list is its True leaves in leaf-id order."""
+    m = tables.m_occ
+    lb = tables.leaf_bounds[:, :m]
+    R = ro.shape[0]
+    tf_ray = (torch.full((R,), float("inf"), device=ro.device)
+              if t_far is None else t_far)
+    live = live_rays(ro, t_far, t_min)
+    flags = []
+    for r0 in range(0, R, CHUNK_RAYS):
+        o, inv = ro[r0:r0 + CHUNK_RAYS], 1.0 / rd[r0:r0 + CHUNK_RAYS]
+        tn = torch.full((o.shape[0], m), -float("inf"), device=ro.device)
+        tf = torch.full((o.shape[0], m), float("inf"), device=ro.device)
+        for k in range(3):
+            a = (lb[k][None, :] - o[:, k:k + 1]) * inv[:, k:k + 1]
+            b = (lb[k + 3][None, :] - o[:, k:k + 1]) * inv[:, k:k + 1]
+            skip = torch.isnan(a) | torch.isnan(b)
+            tn = torch.where(skip, tn, torch.maximum(tn, torch.minimum(a, b)))
+            tf = torch.where(skip, tf, torch.minimum(tf, torch.maximum(a, b)))
+        near = torch.clamp(tn, min=0.0)
+        lim = tf_ray[r0:r0 + CHUNK_RAYS, None]
+        flags.append((tf * SLACK >= near) & (near <= lim * SLACK)
+                     & (lb[0] <= lb[3])[None, :]
+                     & live[r0:r0 + CHUNK_RAYS, None])
+    wants = torch.cat(flags)
+    pad = -R % rays_per_row
+    wants = torch.cat([wants, wants.new_zeros((pad, m))])
+    return wants.reshape(-1, rays_per_row, m).any(1)
 
 
 def bvh_hit_ts_cull_cuda(tables: TriTables, ro, rd, t_min, t_far=None,
-                         any_hit: bool = False):
-    """Dense cull, then the listed-leaf sweep kernel, on CUDA tensors."""
+                         any_hit: bool = False, group: int | None = None):
+    """The cull-and-sweep kernel (csrc/traverse_cull.cu) on CUDA tensors:
+    one launch, no (R, L) array. ``group``: lanes per ray (default:
+    ``group_size`` of the ray count); it changes no output. Launches on
+    the current stream."""
+    global KERNEL_LAUNCHES
+
     check_query(tables, ro, rd, t_far, "cuda")
-    R = ro.shape[0]
-    t, slot = sweep_cuda(tables, cull_inputs(tables, ro, rd, t_far), t_min,
-                         any_hit)
-    t, slot = t[:R], slot[:R]
-    return torch.where(slot >= 0, t, float("inf")), slot
+    lw = tables.leaf_bounds.shape[1]
+    if not cull_ok(tables):
+        raise ValueError(f"{lw} leaf lanes: the cull kernel takes at most "
+                         f"{MAX_CULL_LEAVES}")
+    if group is None:
+        group = group_size(ro.shape[0])
+    out = launch_query(
+        "traverse_cull", ro, rd, t_min, t_far, any_hit, group,
+        (tables.leaf_bounds.data_ptr(), tables.tri_lm.data_ptr(),
+         tables.sub.data_ptr()), (tables.m_occ, lw))
+    KERNEL_LAUNCHES += 1
+    return out
 
 
 def bvh_hit_ts_cull(tables: TriTables, ro, rd, t_min, t_far=None,
@@ -141,4 +150,3 @@ def bvh_hit_ts_cull(tables: TriTables, ro, rd, t_min, t_far=None,
     if ro.device.type == "cpu":
         return tri_hit_plain(tables, ro, rd, t_min, t_far, any_hit)
     raise ValueError(f"no triangle query for device {ro.device}")
-

@@ -1,7 +1,9 @@
 """The wavefront route's building blocks against the JAX package: bounce
 uniforms (bitwise), intersection, BSDF and light pdfs, the dense leaf cull,
 and the plain triangle sweep against the JAX cull and packet kernels in
-interpret mode."""
+interpret mode; and what the traversal kernels' wrappers prepare on the
+host: their tables, the cull kernel's conservative row cull (against the
+JAX lists and the dense sweep) and the lanes-per-ray rule."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -180,11 +182,15 @@ def test_light_pdfs_match_jax(scenes):
 # ---------------------------------------------------------------------------
 
 
-def _bvh(n, seed):
-    """(JAX TriBVH, the port's TriTables of the same arrays, centroids)."""
+def _bvh(n, seed, edit=None):
+    """(JAX TriBVH, the port's TriTables of the same arrays, centroids);
+    ``edit(v0, v1, v2)`` may change the random triangles first."""
     v0, v1, v2 = random_tris(n, seed=seed)
+    if edit is not None:
+        edit(v0, v1, v2)
     jb = build_tri_bvh(v0, v1, v2, np.zeros(n, np.int32))
-    return jb, traverse.tri_tables(port_bvh(jb)), (v0 + v1 + v2) / 3
+    return (jb, traverse.tri_tables(port_bvh(jb, (v0, v1, v2))),
+            (v0 + v1 + v2) / 3)
 
 
 def test_block_leaf_lists_match_jax():
@@ -203,19 +209,184 @@ def test_block_leaf_lists_match_jax():
     assert (got_c.numpy() > 0).all()
 
 
-def test_cull_inputs_pad_and_order():
-    """The kernel's host half: rays padded to whole 128-ray rows with dead
-    parked rays, and every row once in launch order, longest list first."""
-    _, tables, _ = _bvh(700, seed=21)
-    ro, rd = random_rays(300, seed=10)
-    ro_p, rd_p, tf_p, lists, counts, rows = traverse_cull.cull_inputs(
-        tables, T(ro), T(rd))
-    assert ro_p.shape == (384, 3) and tf_p.shape == (384,)
-    np.testing.assert_array_equal(ro_p[:300].numpy(), ro)
-    assert (tf_p[300:] == 0).all() and torch.isinf(tf_p[:300]).all()
-    assert sorted(rows.tolist()) == [0, 1, 2]
-    c = counts.numpy()[rows.numpy()]
-    assert (np.diff(c) <= 0).all()
+def _mesh_tables(name):
+    """(port scene, its TriTables) of a scene with triangles."""
+    from offline_raytracer_tpu_torch.models.scenes import bunny_builder
+    from offline_raytracer_tpu_torch.scene.build import (
+        SceneBuilder as PortBuilder)
+    from torch_port_cases import procedural_mesh
+
+    if name == "mesh":
+        scene = mesh_recipe(PortBuilder).build(16, 16, device="cpu")
+    else:
+        v, f = procedural_mesh(3000)
+        scene = bunny_builder(v * 0.075, f).build(16, 16, device="cpu")
+    return scene, traverse.tri_tables(scene.tri_bvh)
+
+
+@pytest.mark.parametrize("name", ["mesh", "bunny-like"])
+def test_kernel_tables_are_the_segment_kernels(name):
+    """The traversal kernels' leaf-major table and sub-boxes are, bit for
+    bit, what mega.prepare_tables builds from the same BVH, and the
+    leaf-major table maps back to every slot's coefficient row."""
+    from offline_raytracer_tpu_torch import RenderConfig
+    from offline_raytracer_tpu_torch.ops import bvh as tbvh
+    from offline_raytracer_tpu_torch.ops import mega
+
+    scene, tables = _mesh_tables(name)
+    mt = mega.prepare_tables(scene, RenderConfig(enable_dof=False))
+    assert torch.equal(tables.tri_lm, mt.tri_lm)
+    assert torch.equal(tables.sub, mt.sub)
+    assert torch.equal(tables.sub[..., :6], scene.tri_bvh.sub_bounds)
+    S = tables.tri.shape[0]
+    assert tables.sub.shape == (S // tbvh.LEAF, tbvh.SUB, 8)
+    flat = tables.tri_lm.reshape(-1, 4)
+    s = torch.arange(S)
+    for plane, cols in ((0, slice(8, 12)), (1, slice(0, 4)),
+                        (2, slice(4, 8))):
+        got = flat[((s // tbvh.LEAF) * 3 + plane) * tbvh.LEAF
+                   + s % tbvh.LEAF]
+        assert torch.equal(got, tables.tri[:, cols])
+
+
+def test_tables_without_sub_boxes_serve_only_the_plain_sweep():
+    jb, _, c = _bvh(300, seed=4)
+    tables = traverse.tri_tables(port_bvh(jb))
+    assert tables.sub is None
+    ro, rd = random_rays(64, seed=1, targets=c)
+    assert (traverse.tri_hit_plain(tables, T(ro), T(rd), T_MIN)[1]
+            >= 0).any()
+
+
+@pytest.mark.parametrize("rays_per_row", [128, 32, 4])
+def test_row_cull_is_a_superset_of_the_jax_lists(rays_per_row):
+    """The kernel's conservative row cull wants every leaf the JAX
+    package's exact cull lists for a 128-ray row (its rows of 128 /
+    rays_per_row kernel rows together), with shadow bounds and dead
+    lanes."""
+    from offline_raytracer_tpu.ops.traverse_cull import block_leaf_lists
+
+    jb, tables, c = _bvh(700, seed=21)       # 6 leaves
+    ro, rd = random_rays(512, seed=9, targets=c)
+    tb = np.random.RandomState(2).uniform(0.0, 12.0, 512).astype(np.float32)
+    tb[::9] = 0.0
+    ref_l, ref_c = block_leaf_lists(jb, jnp.asarray(ro), jnp.asarray(rd),
+                                    jnp.asarray(tb), 128)
+    rows = traverse_cull.row_cull_plain(tables, T(ro), T(rd), T_MIN, T(tb),
+                                        rays_per_row).numpy()
+    assert rows.shape == (512 // rays_per_row, tables.m_occ)
+    per_block = rows.reshape(4, -1, tables.m_occ).any(1)
+    ref_l, ref_c = _np(ref_l), _np(ref_c)[:, 0]
+    for b in range(4):
+        assert per_block[b, ref_l[b, :ref_c[b]]].all()
+    assert rows.any(1).all()
+
+
+def test_row_cull_keeps_a_leaf_the_exact_cull_drops():
+    """A ray in the plane of a leaf box's face (0 * inf = NaN in the exact
+    slab test) hits a triangle on that face: the JAX package's exact cull
+    drops the leaf, the conservative cull keeps it."""
+    from offline_raytracer_tpu.ops.traverse_cull import block_leaf_lists
+
+    def edge_on(v0, v1, v2):
+        # the lowest edge lies at y = 0, across the ray's path
+        v0[0], v1[0], v2[0] = (5, 0, -1), (5, 0, 1), (5, 1, 0)
+
+    jb, tables, _ = _bvh(300, seed=3, edit=edge_on)
+    ro = np.zeros((128, 3), np.float32)
+    rd = np.tile(np.array([[1.0, 0.0, 0.0]], np.float32), (128, 1))
+    _, s = traverse.tri_hit_plain(tables, T(ro), T(rd), T_MIN)
+    leaf = int(s[0]) // 128
+    assert int(s[0]) >= 0 and _np(jb.tri_index)[int(s[0])] == 0
+    ref_l, ref_c = block_leaf_lists(jb, jnp.asarray(ro), jnp.asarray(rd),
+                                    jnp.full((128,), jnp.inf), 128)
+    assert leaf not in _np(ref_l)[0, :int(_np(ref_c)[0, 0])]
+    assert traverse_cull.row_cull_plain(tables, T(ro), T(rd), T_MIN)[0, leaf]
+
+
+def _listed_sweep(tables, ro, rd, t_far, any_hit, rays_per_row):
+    """The plain sweep of each row's rays over the leaves on its list only
+    (the other leaves' coefficients zeroed: n = 0 never hits)."""
+    import dataclasses
+
+    rows = traverse_cull.row_cull_plain(tables, ro, rd, T_MIN, t_far,
+                                        rays_per_row)
+    out = [], []
+    for r, listed in enumerate(rows):
+        keep = torch.zeros(tables.tri.shape[0] // 128, dtype=torch.bool)
+        keep[:tables.m_occ] = listed
+        tri = tables.tri * keep.repeat_interleave(128)[:, None]
+        part = slice(r * rays_per_row, (r + 1) * rays_per_row)
+        got = traverse.tri_hit_plain(
+            dataclasses.replace(tables, tri=tri), ro[part], rd[part], T_MIN,
+            None if t_far is None else t_far[part], any_hit)
+        for acc, x in zip(out, got):
+            acc.append(x)
+    return tuple(torch.cat(acc) for acc in out)
+
+
+@pytest.mark.parametrize("name", ["mesh", "bunny-like", "random"])
+@pytest.mark.parametrize("rays_per_row", [128, 32, 4])
+def test_sweep_of_the_row_lists_equals_the_dense_sweep(name, rays_per_row):
+    """Closest and any hit over each row's conservative list equal the
+    dense sweep, slots and t bit for bit (the any-hit slot too: the least
+    hit slot), on camera-like rays and shadow rays with dead lanes."""
+    if name == "random":
+        _, tables, c = _bvh(1500, seed=6)
+        ro, rd = random_rays(600, seed=5, targets=c)
+    else:
+        _, tables = _mesh_tables(name)
+        ro, rd = random_rays(600, seed=5, spread=3.0)
+        ro[:, 2] = np.abs(ro[:, 2]) + 0.5
+        rd[::2] = -ro[::2] / np.linalg.norm(ro[::2], axis=1, keepdims=True)
+    ro, rd = T(ro), T(rd)
+    ro[::50] = 1e8                                  # parked: a miss
+    tf = T(np.random.RandomState(1).uniform(0.2, 6.0, 600).astype(
+        np.float32))
+    tf[::7] = 0.0
+    for t_far, any_hit in ((None, False), (tf, True), (tf, False)):
+        ref = traverse.tri_hit_plain(tables, ro, rd, T_MIN, t_far, any_hit)
+        got = _listed_sweep(tables, ro, rd, t_far, any_hit, rays_per_row)
+        assert (ref[1] >= 0).sum() > 20
+        assert torch.equal(got[1], ref[1]) and torch.equal(got[0], ref[0])
+        assert (ref[1][::50] == -1).all()
+
+
+def test_parked_and_dead_rays_miss():
+    """The contract's dead rays: an origin parked at or beyond PARKED, or
+    t_far <= t_min, misses even when the ray points at a triangle."""
+    _, tables, c = _bvh(300, seed=4)
+    ro, rd = random_rays(8, seed=1, targets=c)
+    far = np.float32(2 * traverse.PARKED)
+    ro[0] = c[0] + np.array([0, 0, far], np.float32)
+    rd[0] = np.array([0, 0, -1], np.float32)
+    ro[1] = c[0] + np.array([0, 0, 1], np.float32)
+    rd[1] = np.array([0, 0, -1], np.float32)
+    t, s = traverse.tri_hit_plain(tables, T(ro), T(rd), T_MIN)
+    assert int(s[0]) == -1 and np.isinf(float(t[0])) and int(s[1]) >= 0
+    tf = torch.full((8,), 10.0)
+    tf[1] = T_MIN
+    live = traverse.live_rays(T(ro), tf, T_MIN)
+    assert live.tolist() == [False, False] + [True] * 6
+    _, s = traverse.tri_hit_plain(tables, T(ro), T(rd), T_MIN, tf,
+                                  any_hit=True)
+    assert int(s[1]) == -1
+
+
+def test_group_rule():
+    """The lanes-per-ray rule of both kernels: a power of two in GROUPS,
+    more lanes for fewer rays, the rays' lanes near the aim; 16 for the
+    wavefront's 262,144-ray queries (PERF.md)."""
+    picks = []
+    for n in (1 << 22, 1 << 20, 1 << 19, 1 << 18, 4096, 496, 0):
+        g = traverse.group_size(n)
+        assert g in traverse.GROUPS and g <= traverse.GROUP_MAX
+        assert max(n, 1) * g <= traverse.GROUP_LANES or g == 1
+        assert (max(n, 1) * g * 2 > traverse.GROUP_LANES
+                or g == traverse.GROUP_MAX)
+        picks.append(g)
+    assert picks == sorted(picks) and picks[-1] == traverse.GROUP_MAX
+    assert picks[:4] == [1, 4, 8, 16]
 
 
 @pytest.mark.parametrize("kernel", ["cull", "pallas"])

@@ -199,17 +199,20 @@ def check_mega(case, budget=0.002):
     _assert_close(rad, t_rad)
 
 
-def port_bvh(bvh):
-    """The port's TriBVH holding a JAX TriBVH's arrays."""
+def port_bvh(bvh, verts=None):
+    """The port's TriBVH holding a JAX TriBVH's arrays; with the triangles'
+    ``verts`` (v0, v1, v2) also the sub-boxes the port's builder adds."""
     import torch
 
-    from offline_raytracer_tpu_torch.ops.bvh import TriBVH
+    from offline_raytracer_tpu_torch.ops.bvh import TriBVH, sub_bounds_rows
 
     t = lambda x: torch.from_numpy(np.array(x))  # noqa: E731
+    sub = (None if verts is None
+           else t(sub_bounds_rows(np.array(bvh.tri_index), *verts)))
     return TriBVH(child_rows=t(bvh.child_rows), planes=t(bvh.planes),
                   tri_index=t(bvh.tri_index), mat=t(bvh.mat),
-                  leaf_bounds=t(bvh.leaf_bounds), n_leaves=bvh.n_leaves,
-                  m_occ=bvh.m_occ)
+                  leaf_bounds=t(bvh.leaf_bounds), sub_bounds=sub,
+                  n_leaves=bvh.n_leaves, m_occ=bvh.m_occ)
 
 
 def random_tris(n, seed=0, spread=4.0):

@@ -2,7 +2,7 @@
 """Where the time of one sample of the port's slice goes, on one GPU.
 
     python3 tools/profile_torch_slice.py [--samples N] [--traversal ROUTE]
-    python3 tools/profile_torch_slice.py --sweep
+    python3 tools/profile_torch_slice.py [--traversal ROUTE] --sweep
     python3 tools/profile_torch_slice.py --grad [--samples N]
 
 Builds the bunny stand-in of chip_smoke.py (69,451 triangles) and renders
@@ -19,9 +19,12 @@ Builds the bunny stand-in of chip_smoke.py (69,451 triangles) and renders
 - ``cull`` or ``packet``: the wavefront route. Prints the wall time per
   sample; then, for one sample with a synchronise around each triangle
   query (so the parts add up, at the cost of the overlap between host and
-  device), the time of the queries split into the dense cull (cull route
-  only) and the kernel, the rest being the shading glue; then the same
-  profiler table.
+  device), the time of the queries (one kernel launch each), the rest
+  being the shading glue, and the peak device memory; then each of the
+  sample's 16 queries through the kernel alone (CUDA events) and their
+  sum; then the same profiler table. With
+  ``--sweep``: each query at every group size of ``traverse.GROUPS``,
+  after the kernel's registers, stack frame and spills.
 - ``--grad``: the gradient step of ``chip_smoke.py`` phase 8 (the first
   65,536 pixels of the tile order, 1 spp, replay-value, gradients with
   respect to the albedo and the mesh's v0). Prints the wall time per step;
@@ -91,10 +94,50 @@ class SyncTimer:
         setattr(module, name, timed)
 
 
-def wavefront(scene, cfg, ids, samples):
+def query_times(scene, cfg, ids, groups=None):
+    """Each triangle query of one full-size sample through the route's
+    kernel (CUDA events, at the lanes per ray its wrapper picks, or at
+    each of ``groups``): [(bounce, kind, live rays, {G or "rule": ms})]."""
+    import chip_smoke
+    from offline_raytracer_tpu_torch.ops import traverse_cull, traverse_packet
+
+    mod = traverse_cull if cfg.traversal == "cull" else traverse_packet
+    fn = getattr(mod, f"bvh_hit_ts_{cfg.traversal}_cuda")
+    rows = []
+    for k, (tables, ro, rd, tf, any_hit) in enumerate(
+            chip_smoke.capture_queries(scene, cfg, ids)):
+        live = int((ro.abs().amax(1) < 1e7).sum() if tf is None
+                   else ((tf > cfg.t_min) & (ro.abs().amax(1) < 1e7)).sum())
+        ms = {}
+        for g in groups or ("rule",):
+            kw = {} if g == "rule" else {"group": g}
+            ms[g] = chip_smoke.time_ms(lambda: fn(
+                tables, ro, rd, cfg.t_min, tf, any_hit, **kw), 5)
+        rows.append((k // 2, "shadow" if any_hit else "closest", live, ms))
+    return rows
+
+
+def wavefront(scene, cfg, ids, samples, sweep):
     import torch
     from offline_raytracer_tpu_torch.ops import traverse_cull, traverse_packet
     from offline_raytracer_tpu_torch.render import render_block
+
+    if sweep:
+        import chip_smoke
+        from offline_raytracer_tpu_torch.ops import _kernels, traverse
+
+        info = _kernels.build(f"traverse_{cfg.traversal}")
+        print(" | ".join(chip_smoke.ptxas_summary(info["log"])))
+        total = dict.fromkeys(traverse.GROUPS, 0.0)
+        for b, kind, live, ms in query_times(scene, cfg, ids,
+                                             traverse.GROUPS):
+            for g, t in ms.items():
+                total[g] += t
+            print(f"b={b} {kind}: {live} live, kernel ms by lanes per ray: "
+                  + ", ".join(f"G={g} {t:.3f}" for g, t in ms.items()))
+        print("per sample: " + ", ".join(f"G={g} {t:.3f}"
+                                         for g, t in total.items()))
+        return
 
     render_block(scene, cfg, ids, 0, 1)           # build + warm up
     torch.cuda.synchronize()
@@ -105,13 +148,8 @@ def wavefront(scene, cfg, ids, samples):
           f"{(time.time() - t0) / samples * 1e3:.3f} ms")
 
     # one sample with every triangle query synchronised and timed
-    if cfg.traversal == "cull":
-        timers = {"query": SyncTimer(traverse_cull, "bvh_hit_ts_cull_cuda"),
-                  "dense cull": SyncTimer(traverse_cull, "cull_inputs"),
-                  "kernel": SyncTimer(traverse_cull, "sweep_cuda")}
-    else:
-        timers = {"query": SyncTimer(traverse_packet,
-                                     "bvh_hit_ts_packet_cuda")}
+    mod = traverse_cull if cfg.traversal == "cull" else traverse_packet
+    timer = SyncTimer(mod, f"bvh_hit_ts_{cfg.traversal}_cuda")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.time()
@@ -119,15 +157,18 @@ def wavefront(scene, cfg, ids, samples):
     torch.cuda.synchronize()
     wall = (time.time() - t0) * 1e3
     peak = torch.cuda.max_memory_allocated() / 2**20
-    for t in timers.values():
-        t.restore()
-    q = timers["query"].ms
+    timer.restore()
     print(f"one synchronised sample: {wall:.3f} ms; triangle queries "
-          f"{q:.3f} ms in {timers['query'].calls} calls; shading glue and "
-          f"sorts {wall - q:.3f} ms; peak device memory {peak:.1f} MiB")
-    for name in ("dense cull", "kernel"):
-        if name in timers:
-            print(f"  {name}: {timers[name].ms:.3f} ms")
+          f"{timer.ms:.3f} ms in {timer.calls} calls; shading glue and "
+          f"sorts {wall - timer.ms:.3f} ms; peak device memory {peak:.1f} "
+          f"MiB")
+
+    # each query's kernel time at the route's shapes
+    total = 0.0
+    for b, kind, live, ms in query_times(scene, cfg, ids):
+        total += ms["rule"]
+        print(f"  query b={b} {kind}: {live} live, {ms['rule']:.4f} ms")
+    print(f"  the sample's queries through the kernel: {total:.4f} ms")
     profile_table(lambda: render_block(scene, cfg, ids, 1, samples),
                   f"{samples} samples")
 
@@ -245,7 +286,8 @@ def main() -> int:
     ap.add_argument("--grad", action="store_true",
                     help="profile the gradient step instead")
     ap.add_argument("--sweep", action="store_true",
-                    help="time each segment at every group size")
+                    help="time each segment (or with --traversal cull or "
+                    "packet, each triangle query) at every group size")
     args = ap.parse_args()
 
     dev = torch.device("cuda", 0)
@@ -254,6 +296,9 @@ def main() -> int:
                        enable_dof=False, ray_batch=512 * 512,
                        traversal=args.traversal)
     ids = torch.from_numpy(tile_pixel_ids(512, 512)).to(dev)
+    if args.traversal != "mega" and not args.grad:
+        wavefront(scene, cfg, ids, args.samples, args.sweep)
+        return 0
     if args.sweep:
         from offline_raytracer_tpu_torch.ops import _kernels
 
@@ -270,9 +315,6 @@ def main() -> int:
         return 0
     if args.grad:
         grad_breakdown(scene, cfg, ids, args.samples)
-        return 0
-    if args.traversal != "mega":
-        wavefront(scene, cfg, ids, args.samples)
         return 0
 
     tables = mega.prepare_tables(scene, cfg)      # once, as render_image
