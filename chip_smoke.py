@@ -53,7 +53,19 @@ Phases, each printing its own line; any failure exits non-zero:
    albedo set wrong, 8 Adam steps of 4 spp at lr 0.1 towards an 8-spp
    render of the true scene; the loss of the result on the first step's
    samples must be below the first step's, and the albedo nearer the
-   truth.
+   truth;
+10. the command line, the user's path: the stand-in mesh written as an
+   ASCII .ply beside a small .obj and a .scn of every keyword
+   (``tests/torch_port_cases.write_scene_files``: screen 512x512), loaded
+   once to time the load and the LBVH build and to check that it takes the
+   segment route, then rendered by ``cli.main`` in this process at 8 spp,
+   8 bounces, DOF off, ``--ray-batch 262144 --meter --png``: exactly the
+   segment launches of 8 samples and no traversal launch, the .hdr read
+   back equal to the image within RGBE rounding; then the resume surgery of
+   ``tests/test_checkpoint.py:53-77`` through ``--checkpoint`` at 8 spp in
+   chunks of 4 (an uninterrupted run; a 4-spp run relabelled as a paused
+   8-spp run; the resumed run), whose image must be bitwise the
+   uninterrupted one, and near the tile-order render's.
 
 The line before the last is the kernels' JSON record (each kernel's
 launches on its route, its error and time against its plain version, its
@@ -90,6 +102,8 @@ GRAD_STEPS = 4            # timed gradient steps
 INV_STEPS = 8             # Adam steps of the inverse-rendering phase
 INV_SPP = 4               # samples per pixel of each of its steps
 WRONG_ALBEDO = (0.1, 0.8, 0.8)
+CLI_SPP = 8               # samples per pixel of the command line's renders
+CLI_EVERY = 4             # their checkpoint chunk
 KERNELS = ("mega", "traverse_cull", "traverse_packet")
 # the card's peaks (NVIDIA H100 SXM data sheet): device memory bytes/s and
 # float32 FLOP/s outside the tensor cores
@@ -688,6 +702,150 @@ def gradient_phases(scene, cfg, order, card):
     return total + take_counts()[0]
 
 
+def run_cli(argv):
+    """cli.main(argv) in this process, its output captured: (its JSON
+    line, its stdout, its stderr). A failure raises."""
+    import contextlib
+    import io
+
+    from offline_raytracer_tpu_torch import cli
+
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = cli.main(argv)
+    if rc != 0:
+        fail(f"cli.main returned {rc}: {err.getvalue()[-2000:]}")
+    return (json.loads(out.getvalue().strip().splitlines()[-1]),
+            out.getvalue(), err.getvalue())
+
+
+def cli_phase(dev, card):
+    """Phase 10 (the command line); returns the segment launches of its
+    render."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from offline_raytracer_tpu_torch import cli
+    from offline_raytracer_tpu_torch.ops import mega
+    from offline_raytracer_tpu_torch.render import _mega_active
+    from offline_raytracer_tpu_torch.scene.scn import load_scene
+    from offline_raytracer_tpu_torch.utils import checkpoint as ckpt
+    from offline_raytracer_tpu_torch.utils import hdr
+    from torch_port_cases import procedural_mesh, write_scene_files
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.time()
+        v, f = procedural_mesh(N_TRIS)
+        scn = write_scene_files(tmp, v, f)
+        t_write = time.time() - t0
+        t0 = time.time()
+        scene, size = load_scene(scn, device=dev)
+        t_load = time.time() - t0
+        base = ["--scene", scn, "--max-bounces", str(BOUNCES), "--no-dof",
+                "--ray-batch", str(W * H)]
+        cfg = cli.config_from_args(cli.build_parser().parse_args(
+            base + ["--spp", str(CLI_SPP)]), *size)
+        if size != (W, H) or not mega.mega_ok(scene, cfg) or not _mega_active(
+                scene, cfg):
+            fail(f"the .scn loads at {size}, not on the segment route")
+        per_sample = len(mega.segment_plan(cfg)[0])
+        log(f"phase 10 scene files: {N_TRIS}-triangle .ply, .obj and .scn "
+            f"written in {t_write:.2f} s; load_scene (parse, transform, "
+            f"pure-Python LBVH) in {t_load:.2f} s: "
+            f"{scene.triangles.mat.shape[0]} triangles, "
+            f"{scene.tri_bvh.m_occ} leaves, {scene.spheres.radius.shape[0]} "
+            f"spheres, {scene.boxes.mat.shape[0]} box, "
+            f"{scene.cylinders.radius.shape[0]} cylinder, {scene.n_lights} "
+            f"light; segment route")
+
+        images = []                          # every image main writes
+        write_hdr = hdr.write_hdr
+
+        def recording(path, img):
+            images.append(np.array(img))
+            write_hdr(path, img)
+
+        path = lambda name: os.path.join(tmp, name)  # noqa: E731
+        every = ["--checkpoint-every", str(CLI_EVERY)]
+        hdr.write_hdr = recording
+        try:
+            # the render, counted from 0 just before to just after
+            torch.cuda.synchronize()
+            take_counts()
+            line, _, err = run_cli(base + [
+                "--spp", str(CLI_SPP), "--meter", "--out", path("r.hdr"),
+                "--png", path("r.png")])
+            launches, cull, packet = take_counts()
+            # the resume surgery
+            t0 = time.time()
+            run_cli(base + ["--spp", str(CLI_SPP), "--checkpoint",
+                            path("a.npz"), "--out", path("a.hdr")] + every)
+            run_cli(base + ["--spp", str(CLI_EVERY), "--checkpoint",
+                            path("b.npz"), "--out", path("h.hdr")] + every)
+            state = ckpt.load_accum(path("b.npz"), cfg.replace(spp=CLI_EVERY))
+            if state is None or state[1] != CLI_EVERY:
+                fail("the 4-spp run left no checkpoint at spp 4")
+            ckpt.save_accum(path("b.npz"), state[0], CLI_EVERY, cfg)
+            _, out, _ = run_cli(base + [
+                "--spp", str(CLI_SPP), "--checkpoint", path("b.npz"),
+                "--out", path("b.hdr"), "--progress"] + every)
+            t_resume = time.time() - t0
+        finally:
+            hdr.write_hdr = write_hdr
+
+        if launches != per_sample * CLI_SPP or cull or packet:
+            fail(f"the command line launched {launches} segments (want "
+                 f"{per_sample * CLI_SPP}), cull {cull}, packet {packet}")
+        meter = [json.loads(x) for x in err.splitlines()
+                 if x.startswith('{"event": "render_meter"')]
+        img = images[0]
+        if (len(meter) != 1 or img.shape != (H, W, 3)
+                or not np.isfinite(img).all() or not img.mean() > 0):
+            fail(f"the command line's render is broken: {meter}, "
+                 f"{img.shape}, mean {img.mean()}")
+        back = hdr.read_hdr(path("r.hdr"))
+        if not np.array_equal(back, hdr.rgbe_to_float(hdr.float_to_rgbe(img))):
+            fail("the .hdr read back differs from the image's RGBE rounding")
+        with open(path("r.png"), "rb") as fh:
+            if fh.read(8) != b"\x89PNG\r\n\x1a\n":
+                fail("the .png is not a PNG")
+        straight = ckpt.load_accum(path("a.npz"), cfg)
+        resumed = ckpt.load_accum(path("b.npz"), cfg)
+        if ("resumed" not in out or straight[1] != CLI_SPP
+                or resumed[1] != CLI_SPP):
+            fail("the resumed run did not resume to spp 8")
+        differ = int((straight[0].view(np.int32)
+                      != resumed[0].view(np.int32)).sum())
+        with open(path("a.hdr"), "rb") as fa, open(path("b.hdr"), "rb") as fb:
+            same_file = fa.read() == fb.read()
+        if differ or not same_file or not np.array_equal(images[1],
+                                                         images[3]):
+            fail(f"the resumed render differs from the uninterrupted one in "
+                 f"{differ} of {straight[0].size} sums")
+        # the tile-order render (1 spp per launch) vs the natural-order
+        # resumable one (4 per launch): the same rays, summed in another
+        # order
+        rel = float((np.abs(img - images[1])
+                     / np.maximum(np.abs(images[1]), 1e-6)).max())
+        np.testing.assert_allclose(img, images[1], rtol=1e-4, atol=1e-6)
+        m = meter[0]
+        log(f"phase 10 command line: cli.main --scene (.scn with .ply and "
+            f".obj meshes) {W}x{H} {CLI_SPP} spp {BOUNCES} bounces, render "
+            f"{line['seconds']:.3f} s (its scene load apart), meter "
+            f"{m['mrays_per_s']} Mrays/s ({m['rays']} rays in "
+            f"{m['seconds']} s over {CLI_SPP} launches), {launches} segment "
+            f"launches ({per_sample} per sample), 0 cull or packet; .hdr "
+            f"read back = the image's RGBE rounding; image mean "
+            f"{img.mean():.5f} [{card}]")
+        log(f"phase 10 resume: uninterrupted, 4-spp, resumed --checkpoint "
+            f"runs in {t_resume:.3f} s (3 scene loads included); resumed "
+            f"sums bitwise equal to the uninterrupted ({differ} of "
+            f"{straight[0].size} differ), .hdr files byte-equal; vs the "
+            f"tile-order render max rel diff {rel:.3e}")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -807,11 +965,13 @@ def main() -> int:
 
     wave = wavefront_phases(scene, cfg, order, card)
     grad_launches = gradient_phases(scene, cfg, order, card)
+    cli_launches = cli_phase(dev, card)
     record = {"kernels": [{
         "name": "mega_segment", "route": "cuda",
         "source": "offline_raytracer_tpu_torch/csrc/mega.cu",
         "replaces": "offline_raytracer_tpu/ops/mega.py:418",
         "launches": launches, "grad_launches": grad_launches,
+        "cli_launches": cli_launches,
         "max_abs_err": max(r["err"] for r in results),
         "ms": results[0]["ms"], "plain_ms": results[0]["plain_ms"],
         "bound_ms": results[0]["bound_ms"],

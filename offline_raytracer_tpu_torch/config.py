@@ -86,3 +86,12 @@ class RenderConfig:
     def replace(self, **kw) -> "RenderConfig":
         return dataclasses.replace(self, **kw)
 
+
+# the reference renderer's showcase render: its size and spp, its estimator
+# (no NEE, no pixel jitter, the uncompensated final RR gate)
+REFERENCE_SHOWCASE = RenderConfig(
+    width=1280, height=720, spp=2048,
+    enable_nee=False, enable_mis=False, pixel_jitter=False,
+    reference_rr_quirk=True,
+)
+

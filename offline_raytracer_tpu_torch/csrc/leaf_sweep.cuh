@@ -32,7 +32,6 @@ constexpr int LEAF = 128;               // slots per leaf
 constexpr int SUB = 16;                 // sub-boxes per leaf
 constexpr int SUB_TRIS = LEAF / SUB;    // consecutive slots per sub-box
 constexpr float SLACK = 1.00001f;       // relative slack of the cull
-constexpr float PARKED = 1e7f;          // an origin coordinate this far out: parked ray
 constexpr int NO_SLOT = 0x7FFFFFFF;
 constexpr unsigned FULL = 0xFFFFFFFFu;
 
@@ -69,11 +68,9 @@ __device__ __forceinline__ Ray load_ray(const float* ro, const float* rd, int i)
 }
 
 // Does the query ask anything of this ray? Not if its bound is empty (a
-// dead lane: t_far <= t_min) or its origin is parked far outside the scene.
-__device__ __forceinline__ bool live(const Ray& r, float t_far, float t_min) {
-  return t_far > t_min && fabsf(r.ox) < PARKED && fabsf(r.oy) < PARKED &&
-         fabsf(r.oz) < PARKED;
-}
+// dead lane: t_far <= t_min). The bound is the only dead mark: a ray may
+// start anywhere, however far out.
+__device__ __forceinline__ bool live(float t_far, float t_min) { return t_far > t_min; }
 
 // Conservative slab test of the box [lo, hi]: may it hold a hit nearer than
 // lim? An inverted box (lo.x > hi.x: padding, an empty subtree) never does.

@@ -32,8 +32,8 @@
 //   and sweeps the leaves that pass with the shared leaf sweep
 //   (leaf_sweep.cuh: 16 sub-boxes, then the hit boxes' triangles spread
 //   over the group);
-// - a row with no live ray (t_far <= t_min, or an origin parked at or
-//   beyond 1e7) writes misses and stops after one barrier; the hardware's
+// - a row with no live ray (t_far <= t_min: the integrator launches its
+//   finished paths so) writes misses and stops after one barrier; the hardware's
 //   block scheduler balances rows of unequal lists;
 // - the cull is conservative (leaf_sweep.cuh slab), so the list holds every
 //   leaf the dense sweep may hit: the closest hit is the dense sweep's, and
@@ -84,7 +84,7 @@ __global__ void __launch_bounds__(THREADS) cull_kernel(Params p) {
   if (i < p.R) {
     r = load_ray(p.ro, p.rd, i);
     t_far = p.t_far ? p.t_far[i] : INFINITY;
-    is_live = live(r, t_far, p.lv.t_min);
+    is_live = live(t_far, p.lv.t_min);
   }
   for (int k = threadIdx.x; k < n_words; k += THREADS) row_bits[k] = 0u;
   // the barrier also orders the clearing before the cull's ORs

@@ -26,8 +26,7 @@
 //   tested again against the bound as it stands then (as csrc/mega.cu does);
 // - a leaf is swept by the shared leaf sweep (leaf_sweep.cuh): 16 sub-boxes
 //   first, then only the hit boxes' triangles, spread over the group;
-// - a dead ray (t_far <= t_min) or a parked one (an origin coordinate at or
-//   beyond 1e7) does no work and returns a miss;
+// - a dead ray (t_far <= t_min) does no work and returns a miss;
 // - registers are not capped: both kernels compile to 42-53 registers with
 //   no spills, and a cap for 8 blocks per SM (the segment kernel's) was no
 //   faster (PERF.md).
@@ -125,7 +124,7 @@ __global__ void __launch_bounds__(THREADS) packet_kernel(Params p) {
   const float t_far = p.t_far ? p.t_far[i] : INFINITY;
   float t_out = INFINITY;
   int s_out = -1;
-  if (p.m_occ > 0 && live(r, t_far, p.lv.t_min)) {
+  if (p.m_occ > 0 && live(t_far, p.lv.t_min)) {
     Best b;
     b.t = t_far;
     b.slot = NO_SLOT;

@@ -6,8 +6,8 @@ sampled directions are detached, geometry, BSDF and light terms attached,
 so d(image)/d(Kd, Ks, Kt, ior, emit, sphere centers and radii, vertices)
 is unbiased for continuous parameters; silhouette (visibility) gradients
 are not modelled. On the segment route the gradient is the replay's
-(``replay.py``). Checkpointing the optimizer (the JAX ``checkpoint_dir``)
-is not ported yet (ROADMAP queue A12).
+(``replay.py``). ``optimize`` checkpoints the params and the optimizer
+state (``utils/checkpoint.py``) and resumes from the latest step.
 """
 
 from __future__ import annotations
@@ -20,6 +20,7 @@ import torch
 from offline_raytracer_tpu_torch.config import RenderConfig
 from offline_raytracer_tpu_torch.render import render_block
 from offline_raytracer_tpu_torch.scene.types import Scene
+from offline_raytracer_tpu_torch.utils import checkpoint as ckpt
 
 MAX_GRAD_NORM = 10.0
 
@@ -65,26 +66,61 @@ def _guard(grads):
 
 def optimize(scene: Scene, cfg: RenderConfig, target, pixel_ids, params,
              setter: Callable = apply_material_params, steps: int = 100,
-             lr: float = 5e-2, verbose: bool = False):
-    """Adam (optax's defaults: b1 0.9, b2 0.999, eps 1e-8) on the image
-    loss. Step k renders sample window [k * spp, (k + 1) * spp), so the
-    gradient noise is independent across steps. Returns (params, losses)
-    with the params as detached tensors."""
+             lr: float = 5e-2, optimizer: Callable | None = None,
+             verbose: bool = False, checkpoint_dir: str | None = None,
+             checkpoint_every: int = 25):
+    """Descent on the image loss. Step k renders sample window
+    [k * spp, (k + 1) * spp), so the gradient noise is independent across
+    steps. Returns (params, losses of the steps this call ran) with the
+    params as detached tensors.
+
+    ``optimizer``: a callable (list of parameter tensors) ->
+    ``torch.optim.Optimizer``; by default Adam (optax's defaults: b1 0.9,
+    b2 0.999, eps 1e-8) behind ``_guard``, the JAX default's NaN and norm
+    guards (a given optimizer replaces the guards too, as in the JAX
+    package).
+
+    With ``checkpoint_dir``, the params and the optimizer state are saved
+    every ``checkpoint_every`` steps and after the last, and a call finding
+    a saved step there resumes from the latest one."""
     loss_fn = make_loss_fn(scene, cfg, target, pixel_ids, setter)
     params = {k: v.detach().clone().requires_grad_(True)
               for k, v in params.items()}
     leaves = list(params.values())
-    opt = torch.optim.Adam(leaves, lr=lr, betas=(0.9, 0.999), eps=1e-8)
+    if optimizer is None:
+        opt = torch.optim.Adam(leaves, lr=lr, betas=(0.9, 0.999), eps=1e-8)
+    else:
+        opt = optimizer(leaves)
+
+    start = 0
+    if checkpoint_dir:
+        latest = ckpt.latest_opt_step(checkpoint_dir)
+        if latest is not None:
+            saved, opt_state = ckpt.load_opt_state(checkpoint_dir, latest)
+            with torch.no_grad():
+                for name, x in params.items():
+                    x.copy_(saved[name])
+            opt.load_state_dict(opt_state)
+            start = latest
+            if verbose:
+                print(f"resumed inverse rendering at step {start}")
+
     losses = []
-    for k in range(steps):
+    for k in range(start, steps):
         loss = loss_fn(params, k * cfg.spp)
         grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-        grads = _guard([torch.zeros_like(x) if g is None else g
-                        for x, g in zip(leaves, grads)])
+        grads = [torch.zeros_like(x) if g is None else g
+                 for x, g in zip(leaves, grads)]
+        if optimizer is None:
+            grads = _guard(grads)
         for x, g in zip(leaves, grads):
             x.grad = g
         opt.step()
         losses.append(loss.item())
+        if checkpoint_dir and ((k + 1) % checkpoint_every == 0
+                               or k == steps - 1):
+            ckpt.save_opt_state(checkpoint_dir, k + 1, params,
+                                opt.state_dict())
         if verbose and (k % 10 == 0 or k == steps - 1):
             print(f"step {k:4d}  loss {losses[-1]:.6f}")
     return {k: v.detach() for k, v in params.items()}, losses

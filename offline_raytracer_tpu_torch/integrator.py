@@ -48,7 +48,10 @@ class PathState:
 
 
 def make_brute_trace_fn(scene, cfg):
-    def trace(ro, rd):
+    """Closest-hit function (ro, rd, alive=None) -> Hit by the brute-force
+    sweep, which answers every lane (``alive`` is the BVH query's dead
+    mark, ``traverse.make_bvh_trace_fn``)."""
+    def trace(ro, rd, alive=None):
         return closest_hit_bruteforce(scene, ro, rd, cfg.t_min)
     return trace
 
@@ -139,7 +142,9 @@ def trace_paths(scene, cfg, trace_fn, origin, direction, ps_keys,
         R_cur = state.alive.shape[0]     # replay tiers shrink the batch
         if pre is None:
             u8 = rng.bounce_uniforms(state.keys, bounce_idx, 8)
-            hit = trace_fn(state.origin, state.direction)
+            # finished lanes go to the query dead (t_far = 0), as the
+            # shadow query's do: their parked origin is no dead mark
+            hit = trace_fn(state.origin, state.direction, state.alive)
             mat_i = hit.mat.long()
             emit = mats.emit[mat_i]
             is_light = mats.is_light[mat_i]

@@ -8,8 +8,9 @@ miss and t is +inf there. The winner is the least (t, slot) among hits with
 ``t_min <= t < t_far``; that rule does not depend on visit order, so every
 implementation gives the same answer. In any-hit mode only ``slot >= 0``
 counts (t is ``t_min`` on a hit). A ray is dead, and misses, when its
-``t_far <= t_min`` or when its origin is parked (a coordinate at or beyond
-``PARKED``, where the integrator parks finished paths).
+``t_far <= t_min``: that bound is the only dead mark, so the integrator
+launches its finished paths with ``t_far = 0`` in both queries, and a live
+ray may start however far out (as in the JAX package's queries).
 
 Three implementations:
 
@@ -43,7 +44,6 @@ from offline_raytracer_tpu_torch.ops import intersect as I
 from offline_raytracer_tpu_torch.ops.bvh import LEAF
 
 INF = float("inf")
-PARKED = 1e7        # an origin coordinate this far out: a parked, dead ray
 GROUPS = (1, 2, 4, 8, 16, 32)   # lanes per ray the kernels are built for
 # the lanes-per-ray rule of both kernels (group_size): aim a query's rays
 # at GROUP_LANES lanes, at most GROUP_MAX per ray (tuned on the H100,
@@ -92,9 +92,10 @@ def tri_tables(bvh) -> TriTables:
 
 def live_rays(ro, t_far, t_min):
     """(R,) bool: the rays a query asks anything of (the contract's live
-    rays: not parked, t_far > t_min)."""
-    live = ro.abs().amax(1) < PARKED
-    return live if t_far is None else live & (t_far > t_min)
+    rays: t_far > t_min; all of them without a bound)."""
+    if t_far is None:
+        return torch.ones(ro.shape[:1], dtype=torch.bool, device=ro.device)
+    return t_far > t_min
 
 
 def group_size(n_rays: int) -> int:
@@ -117,9 +118,9 @@ def tri_hit_plain(tables: TriTables, ro, rd, t_min, t_far=None,
     R = ro.shape[0]
     dev = ro.device
     S = tables.m_occ * LEAF
+    # a dead ray (t_far <= t_min) passes no hit's t_min <= t < t_far
     bound = (torch.full((R,), INF, dtype=torch.float32, device=dev)
              if t_far is None else t_far)
-    bound = torch.where(live_rays(ro, t_far, t_min), bound, 0.0)
     chunk = max(LEAF, min(S, ((1 << 24) // max(R, 1)) // LEAF * LEAF))
     best = torch.full((R,), _BIG, dtype=torch.int64, device=dev)
     ox, oy, oz = (ro[:, k:k + 1] for k in range(3))
@@ -285,20 +286,23 @@ def sorted_tri_hit(tables, tri_hit, cfg, ro, rd, t_far=None,
 
 
 def make_bvh_trace_fn(scene, cfg, tables: TriTables | None = None):
-    """Closest-hit function (ro, rd) -> Hit: dense sweeps for the analytic
-    primitives, the BVH query for triangles, one differentiable
-    ``refine_hit`` of the winner."""
+    """Closest-hit function (ro, rd, alive=None) -> Hit: dense sweeps for
+    the analytic primitives, the BVH query for triangles, one
+    differentiable ``refine_hit`` of the winner. ``alive`` (R,) bool: the
+    lanes whose hit is wanted; the others go to the triangle query with
+    ``t_far = 0`` (dead) and cost it nothing."""
     bvh = scene.tri_bvh
     if bvh is None:
         raise ValueError("scene has no tri_bvh; build it with with_bvh=True")
     tables = tri_tables(bvh) if tables is None else tables
     tri_hit = pick_tri_hit(tables, cfg)
 
-    def trace(ro, rd):
+    def trace(ro, rd, alive=None):
         with torch.no_grad():
             best = I.Closest(ro.shape[0], ro.device)
             best.consider_analytic(scene, ro, rd, cfg.t_min)
-            tt, slot = sorted_tri_hit(tables, tri_hit, cfg, ro, rd)
+            tf = None if alive is None else torch.where(alive, INF, 0.0)
+            tt, slot = sorted_tri_hit(tables, tri_hit, cfg, ro, rd, tf)
             tri_id = torch.where(
                 slot >= 0, tables.tri_index[torch.clamp(slot, min=0).long()],
                 -1)

@@ -17,12 +17,14 @@ the scene, never from the device:
 runs the same route on the CPU with the plain versions.) Under autograd the
 segment route is differentiable through the replay (``replay.py``), as
 ``cfg.grad_mode`` says; without a gradient to take it is the plain segment
-call. ``render_image_diff`` is the differentiable single-call render.
-``render_image_resumable`` and the checkpoint path are not ported yet
-(ROADMAP queue A12).
+call. ``render_image_diff`` is the differentiable single-call render;
+``render_image_resumable`` checkpoints the accumulation
+(``utils/checkpoint.py``) and resumes it bitwise.
 """
 
 from __future__ import annotations
+
+import time
 
 import numpy as np
 import torch
@@ -143,10 +145,28 @@ def tile_pixel_ids(width: int, height: int, tile: int = 32) -> np.ndarray:
     return ids[np.argsort(key, kind="stable")]
 
 
-def render_image(scene: Scene, cfg: RenderConfig,
-                 progress: bool = False) -> np.ndarray:
+def _launch(paths, scene, cfg, ids, sample_lo, k, meter):
+    """Mean radiance (P, 3) of samples [sample_lo, sample_lo + k) of
+    pixels ``ids``. With a ``utils.profiling.RenderMeter`` the launch
+    collects the alive counts and feeds the meter its rays and seconds,
+    the clock closed by a sync when the scene is on the card; without one
+    nothing waits."""
+    if meter is None:
+        return _accumulate(paths, scene, cfg, ids, sample_lo, k, False)[0]
+    t0 = time.time()
+    out, alive = _accumulate(paths, scene, cfg, ids, sample_lo, k, True)
+    if scene.device.type == "cuda":
+        torch.cuda.synchronize(scene.device)
+    meter.add_launch(ids.shape[0] * k, alive.cpu().numpy(),
+                     cfg.enable_nee and scene.n_lights > 0, time.time() - t0)
+    return out
+
+
+def render_image(scene: Scene, cfg: RenderConfig, progress: bool = False,
+                 meter=None) -> np.ndarray:
     """Full render -> (H, W, 3) float32, row 0 = top, on the scene's
-    device."""
+    device. ``meter``: an optional ``utils.profiling.RenderMeter`` fed with
+    every launch's rays and seconds."""
     dev = scene.device
     n_pixels = cfg.width * cfg.height
     block = min(n_pixels, max(1, cfg.ray_batch))
@@ -160,7 +180,7 @@ def render_image(scene: Scene, cfg: RenderConfig,
         done = 0
         while done < cfg.spp:
             k = min(spp_chunk, cfg.spp - done)
-            out = _accumulate(paths, scene, cfg, ids, done, k, False)[0]
+            out = _launch(paths, scene, cfg, ids, done, k, meter)
             acc = out * k if acc is None else acc + out * k
             done += k
             if progress:
@@ -169,6 +189,52 @@ def render_image(scene: Scene, cfg: RenderConfig,
         img[ids.long()] = acc / cfg.spp
     # pixel row 0 is the bottom scanline; flip to image order
     return img.cpu().numpy().reshape(cfg.height, cfg.width, 3)[::-1]
+
+
+def render_image_resumable(scene: Scene, cfg: RenderConfig,
+                           checkpoint_path: str,
+                           checkpoint_every_spp: int = 16,
+                           progress: bool = False, meter=None) -> np.ndarray:
+    """Full render with a durable accumulation (``utils/checkpoint.py``)
+    -> (H, W, 3) float32, row 0 = top.
+
+    Samples advance spp-major (all pixels together, in natural pixel
+    order), and the running float32 sum is checkpointed after every
+    ``checkpoint_every_spp`` samples. A restart resumes at the recorded
+    sample index; the sample keys are counter-based and each launch's
+    batches are the same, so the image is bitwise the uninterrupted one.
+    ``meter``: as in ``render_image``."""
+    from offline_raytracer_tpu_torch.utils import checkpoint as ckpt
+
+    dev = scene.device
+    n_pixels = cfg.width * cfg.height
+    block = min(n_pixels, max(1, cfg.ray_batch))
+
+    state = ckpt.load_accum(checkpoint_path, cfg)
+    if state is not None:
+        accum, spp_done = state
+        if progress:
+            print(f"resumed {checkpoint_path} at spp {spp_done}", flush=True)
+    else:
+        accum = np.zeros((n_pixels, 3), np.float32)
+        spp_done = 0
+
+    paths = _paths_fn(scene, cfg)       # scene tables built once
+    while spp_done < cfg.spp:
+        k = min(checkpoint_every_spp, cfg.spp - spp_done)
+        for start in range(0, n_pixels, block):
+            ids = np.arange(start, min(start + block, n_pixels),
+                            dtype=np.int32)
+            out = _launch(paths, scene, cfg, torch.from_numpy(ids).to(dev),
+                          spp_done, k, meter)
+            accum[ids] += out.cpu().numpy() * k
+        spp_done += k
+        ckpt.save_accum(checkpoint_path, accum, spp_done, cfg)
+        if progress:
+            print(f"spp {spp_done}/{cfg.spp} checkpointed", flush=True)
+
+    img = accum / cfg.spp
+    return img.reshape(cfg.height, cfg.width, 3)[::-1]
 
 
 def render_image_diff(scene: Scene, cfg: RenderConfig) -> torch.Tensor:

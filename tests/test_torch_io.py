@@ -86,3 +86,53 @@ def test_hdr_and_png_bytes_match_jax(tmp_path):
         assert ((tmp_path / ("port_" + name)).read_bytes()
                 == (tmp_path / ("jax_" + name)).read_bytes())
     np.testing.assert_array_equal(hdr.tonemap(img, 2.0), jax_hdr.tonemap(img, 2.0))
+
+
+def _rle_row(values):
+    """New-style RLE of one channel of a scanline: runs of 3 or more equal
+    bytes as (128 + n, byte), the rest as literal chunks (n, bytes...)."""
+    out, i, n = [], 0, len(values)
+    while i < n:
+        j = i
+        while j < n and j - i < 127 and values[j] == values[i]:
+            j += 1
+        if j - i >= 3:
+            out += [128 + j - i, int(values[i])]
+            i = j
+            continue
+        k = i
+        while k < n and k - i < 128 and not (
+                k + 2 < n and values[k] == values[k + 1] == values[k + 2]):
+            k += 1
+        out += [k - i] + [int(x) for x in values[i:k]]
+        i = k
+    return out
+
+
+@pytest.mark.parametrize("layout", ["flat", "rle"])
+def test_read_hdr_matches_jax(tmp_path, layout):
+    """Both packages' readers give the same image: of the flat file both
+    write (the image's RGBE rounding), and of a new-style RLE file with
+    runs, literals and the -Y / -X orientation."""
+    rs = np.random.RandomState(4)
+    img = (rs.exponential(0.5, (7, 40, 3)) * (rs.uniform(size=(7, 40, 1))
+                                               > 0.2)).astype(np.float32)
+    img[:, 10:30] = img[:, 10:11]                   # runs along each row
+    path = str(tmp_path / f"{layout}.hdr")
+    if layout == "flat":
+        hdr.write_hdr(path, img)
+        want = hdr.rgbe_to_float(hdr.float_to_rgbe(img))
+    else:
+        rgbe = hdr.float_to_rgbe(img)
+        body = []
+        for row in rgbe:
+            body += [2, 2, 40 >> 8, 40 & 255]
+            for c in range(4):
+                body += _rle_row(row[:, c])
+        with open(path, "wb") as f:
+            f.write(b"#?RADIANCE\nFORMAT=32-bit_rle_rgbe\n\n-Y 7 -X 40\n")
+            f.write(bytes(body))
+        want = hdr.rgbe_to_float(rgbe)[::-1, ::-1]
+    got = hdr.read_hdr(path)
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got, jax_hdr.read_hdr(path))

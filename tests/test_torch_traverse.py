@@ -353,24 +353,33 @@ def test_sweep_of_the_row_lists_equals_the_dense_sweep(name, rays_per_row):
 
 
 def test_parked_and_dead_rays_miss():
-    """The contract's dead rays: an origin parked at or beyond PARKED, or
-    t_far <= t_min, misses even when the ray points at a triangle."""
+    """The contract's dead rays are those with t_far <= t_min: a finished
+    path, parked at the integrator's PARK_ORIGIN and launched with
+    t_far = 0, misses in both modes even when it points at a triangle, and
+    so does a ray whose bound is t_min. The same rays with a bound hit."""
+    from offline_raytracer_tpu_torch.integrator import PARK_ORIGIN
+
     _, tables, c = _bvh(300, seed=4)
     ro, rd = random_rays(8, seed=1, targets=c)
-    far = np.float32(2 * traverse.PARKED)
-    ro[0] = c[0] + np.array([0, 0, far], np.float32)
-    rd[0] = np.array([0, 0, -1], np.float32)
-    ro[1] = c[0] + np.array([0, 0, 1], np.float32)
-    rd[1] = np.array([0, 0, -1], np.float32)
+    for i in (0, 1):
+        ro[i] = c[0] + np.array([0, 0, 1], np.float32)
+        rd[i] = np.array([0, 0, -1], np.float32)
+    ro[2] = np.float32(PARK_ORIGIN)
+    rd[2] = -ro[2] / np.linalg.norm(ro[2])
     t, s = traverse.tri_hit_plain(tables, T(ro), T(rd), T_MIN)
-    assert int(s[0]) == -1 and np.isinf(float(t[0])) and int(s[1]) >= 0
-    tf = torch.full((8,), 10.0)
-    tf[1] = T_MIN
-    live = traverse.live_rays(T(ro), tf, T_MIN)
-    assert live.tolist() == [False, False] + [True] * 6
-    _, s = traverse.tri_hit_plain(tables, T(ro), T(rd), T_MIN, tf,
-                                  any_hit=True)
-    assert int(s[1]) == -1
+    assert int(s[0]) >= 0 and int(s[1]) >= 0
+    tf = torch.full((8,), float("inf"))
+    tf[0], tf[1], tf[2] = 0.0, T_MIN, 0.0
+    assert traverse.live_rays(T(ro), tf, T_MIN).tolist() == (
+        [False] * 3 + [True] * 5)
+    assert bool(traverse.live_rays(T(ro), None, T_MIN).all())
+    for any_hit in (False, True):
+        t_b, s_b = traverse.tri_hit_plain(tables, T(ro), T(rd), T_MIN, tf,
+                                          any_hit=any_hit)
+        assert (s_b[:3] == -1).all() and torch.isinf(t_b[:3]).all()
+        assert torch.equal(s_b[3:] >= 0, s[3:] >= 0)
+        if not any_hit:
+            assert torch.equal(s_b[3:], s[3:]) and torch.equal(t_b[3:], t[3:])
 
 
 def test_group_rule():

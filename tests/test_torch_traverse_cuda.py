@@ -142,8 +142,9 @@ def test_groups_bitwise_equal(device, kernel, any_hit):
 @pytest.mark.parametrize("kernel", list(KERNELS))
 def test_late_bounce_few_live_among_parked(device, kernel):
     """A late bounce: 300 live rays scattered among 262,144, the rest
-    parked at 1e8 (closest hit) or dead (any hit): misses for the parked
-    and dead, the dense sweep's answers for the live."""
+    parked at 1e8 and dead (t_far = 0, as the integrator launches them in
+    both queries): misses for the dead, the dense sweep's answers for the
+    live."""
     tables, ro, rd = _stand_in_case(device, R=4096)
     R = 1 << 18
     rs = np.random.RandomState(11)
@@ -154,20 +155,50 @@ def test_late_bounce_few_live_among_parked(device, kernel):
     src = torch.from_numpy(rs.randint(0, ro.shape[0], 300)).to(device)
     pick_t = torch.from_numpy(pick).to(device)
     ro_l[pick_t], rd_l[pick_t] = ro[src], rd[src]
-    assert int(traverse.live_rays(ro_l, None, T_MIN).sum()) == 300
-    got = _query(kernel, tables, ro_l, rd_l)
+    tf = torch.zeros((R,), device=device)
+    tf[pick_t] = float("inf")
+    assert int(traverse.live_rays(ro_l, tf, T_MIN).sum()) == 300
+    got = _query(kernel, tables, ro_l, rd_l, tf)
     ref = tuple(x.cpu().numpy()
-                for x in traverse.tri_hit_plain(tables, ro_l, rd_l, T_MIN))
+                for x in traverse.tri_hit_plain(tables, ro_l, rd_l, T_MIN, tf))
     _check_closest(got, ref)
     dead = np.ones(R, bool)
     dead[pick] = False
     assert (got[1][dead] == -1).all() and (got[1][pick] >= 0).any()
-    tf = torch.zeros((R,), device=device)
     tf[pick_t] = 1e3
     _, s = _query(kernel, tables, ro_l, rd_l, tf, any_hit=True)
     _, s_p = traverse.tri_hit_plain(tables, ro_l, rd_l, T_MIN, tf,
                                     any_hit=True)
     np.testing.assert_array_equal(s >= 0, s_p.cpu().numpy() >= 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", list(KERNELS))
+def test_far_origin_rays_keep_their_hits(device, kernel):
+    """Rays from 2e7 above a triangle 2e6 across (the scene and rays of
+    tests/test_torch_far_origin.py): both kernels hit what the dense sweep
+    hits, slots and t bit for bit, every downward ray a hit; with t_far = 0
+    on every 5th ray those miss and the rest are unchanged."""
+    from offline_raytracer_tpu_torch.scene.build import SceneBuilder
+    from torch_port_cases import far_origin_recipe, far_origin_rays
+
+    scene = far_origin_recipe(SceneBuilder).build(64, 64, device=device)
+    tables = traverse.tri_tables(scene.tri_bvh)
+    ro, rd = (torch.from_numpy(x).to(device) for x in far_origin_rays())
+    ref = tuple(x.cpu().numpy()
+                for x in traverse.tri_hit_plain(tables, ro, rd, T_MIN))
+    down = np.ones(ro.shape[0], bool)
+    down[::4] = False
+    assert (ref[1][down] >= 0).all() and (ref[1][~down] == -1).all()
+    _check_closest(_query(kernel, tables, ro, rd), ref)
+    tf = torch.full((ro.shape[0],), float("inf"), device=device)
+    tf[::5] = 0.0
+    t, s = _query(kernel, tables, ro, rd, tf)
+    assert (s[::5] == -1).all()
+    live = np.ones(ro.shape[0], bool)
+    live[::5] = False
+    np.testing.assert_array_equal(s[live], ref[1][live])
+    assert (t[live].view(np.int32) == ref[0][live].view(np.int32)).all()
 
 
 @pytest.mark.cuda

@@ -54,6 +54,82 @@ def procedural_mesh(n_tris: int, seed: int = 0):
     return v, f[:n_tris]
 
 
+# a .scn of every keyword: the mesh "standin.ply" recentred on the floor
+# (scale 0.6, z rotation and a quaternion), the small "tile.obj", a glass
+# sphere (brdf with the transmission block), a box floor, a cylinder and a
+# sphere light, seen by the bunny preset's camera
+SCN_TEXT = """\
+screen 512 512
+camera 2.5 0 0.8 b 0.4 q 0.70710678 0 0.70710678 0
+ambient 0.02 0.02 0.03
+light 10 10 10
+sphere 1.5 -1.5 3.0 0.4
+brdf 0.4 0.4 0.45 0 0 0 1
+box -10 -10 -0.2 20 20 0.2
+brdf 0.6 0.5 0.4 0.3 0.3 0.3 50
+mesh standin.ply 0 0 0.6 0.6 z 30 q 0.96592583 0 0 0.25881905
+brdf 0.05 0.05 0.05 0.1 0.1 0.1 80 0.9 0.95 0.9 1.5
+sphere -0.3 0.9 0.35 0.3
+brdf 0.2 0.4 0.7 0 0 0 1
+cylinder 0.2 -1.0 0 0 0 0.8 0.15
+brdf 0.7 0.3 0.2 0.2 0.2 0.2 20
+mesh tile.obj -0.6 -0.9 0.0 0.5 q 1 0 0 0
+"""
+
+# a square pyramid: its base a quad, its sides in the v/vt/vn and v//vn
+# face formats
+OBJ_TEXT = """\
+# pyramid
+v -1 -1 0
+v 1 -1 0
+v 1 1 0
+v -1 1 0
+v 0 0 1.2
+vt 0 0
+vt 1 0
+vt 1 1
+vt 0 1
+vn 0 0 -1
+vn 0 -0.77 0.64
+vn 0.77 0 0.64
+vn 0 0.77 0.64
+vn -0.77 0 0.64
+f 4/4/1 3/3/1 2/2/1 1/1/1
+f 1/1/2 2/2/2 5/3/2
+f 2//3 3//3 5//3
+f 3/3/4 4/4/4 -1/1/4
+f 4 1 5
+"""
+
+
+def write_ply(path, v, f):
+    """An ASCII PLY of vertices (V, 3) and triangles (F, 3); the vertices
+    in 9 significant digits, so float32 reads back exactly."""
+    f = np.asarray(f)
+    with open(path, "w") as fh:
+        fh.write(f"ply\nformat ascii 1.0\nelement vertex {len(v)}\n"
+                 "property float x\nproperty float y\nproperty float z\n"
+                 f"element face {len(f)}\n"
+                 "property list uchar int vertex_indices\nend_header\n")
+        np.savetxt(fh, np.asarray(v, np.float32), fmt="%.9g")
+        np.savetxt(fh, np.concatenate([np.full((len(f), 1), 3), f], 1),
+                   fmt="%d")
+
+
+def write_scene_files(directory, v, f):
+    """SCN_TEXT as scene.scn in ``directory``, with ``v``, ``f`` as its
+    standin.ply and OBJ_TEXT as its tile.obj; -> the .scn's path."""
+    import os
+
+    write_ply(os.path.join(directory, "standin.ply"), v, f)
+    with open(os.path.join(directory, "tile.obj"), "w") as fh:
+        fh.write(OBJ_TEXT)
+    path = os.path.join(directory, "scene.scn")
+    with open(path, "w") as fh:
+        fh.write(SCN_TEXT)
+    return path
+
+
 def analytic_recipe(B):
     """Sphere + floor box + one sphere light (tests/conftest.py)."""
     b = B()
@@ -129,6 +205,31 @@ def port_leaf(scene, path: str):
     for part in path.lstrip(".").split("."):
         x = getattr(x, part)
     return x.detach().cpu().numpy()
+
+
+def assert_scenes_equal(js, ts):
+    """A JAX scene and the port's build of the same calls: every leaf of
+    equal dtype and shape and equal values, but for the BVH arrays the JAX
+    side may build with its native builder (planes within rtol 2e-5, child
+    rows' lanes 0-11 within rtol 1e-6, empty-subtree sentinels inf or
+    1e30)."""
+    arrays = jax_scene_arrays(js)
+    assert arrays, "no leaves"
+    for path, want in arrays.items():
+        got = port_leaf(ts, path)
+        assert got.dtype == want.dtype and got.shape == want.shape, path
+        if path not in (".tri_bvh.planes", ".tri_bvh.child_rows"):
+            np.testing.assert_array_equal(got, want, err_msg=path)
+    if js.tri_bvh is not None:
+        jb, tb = js.tri_bvh, ts.tri_bvh
+        assert (tb.n_leaves, tb.m_occ) == (jb.n_leaves, jb.m_occ)
+        np.testing.assert_allclose(tb.planes.numpy(), np.asarray(jb.planes),
+                                   rtol=2e-5, atol=1e-5)
+        c_j = np.asarray(jb.child_rows)[:, :12]
+        c_t = tb.child_rows.numpy()[:, :12]
+        big = np.abs(c_j) > 1e29
+        np.testing.assert_allclose(c_t[~big], c_j[~big], rtol=1e-6)
+        assert (np.abs(c_t[big]) > 1e29).all()
 
 
 def mega_case(recipe, R, **cfg_kw):
@@ -234,6 +335,39 @@ def random_rays(R, seed, spread=6.0, targets=None):
         k = rs.randint(0, targets.shape[0], R)
         rd[::2] = (targets[k] - ro)[::2]
     rd /= np.linalg.norm(rd, axis=-1, keepdims=True)
+    return ro, rd
+
+
+FAR = 2e7       # origin height of far_origin_rays
+
+
+def far_origin_recipe(B):
+    """A triangle 2e6 across at z = -10 under 300 small random triangles
+    near the origin, one sphere light: the scene of far_origin_rays."""
+    b = B()
+    b.add_material(diffuse=(0.6, 0.6, 0.6))
+    b.add_triangles(np.array([[-1e6, -1e6, -10.0], [1e6, -1e6, -10.0],
+                              [0.0, 1e6, -10.0]], np.float32), [[0, 1, 2]])
+    v0, v1, v2 = random_tris(300, seed=3)
+    b.add_triangles(np.concatenate([v0, v1, v2]),
+                    np.arange(900, dtype=np.int32).reshape(3, 300).T)
+    b.add_light_material((5.0, 5.0, 5.0))
+    b.add_sphere((0.0, 0.0, 40.0), 2.0)
+    b.set_camera((0.0, 0.0, 20.0), 0.5, (0.0, 0.0, 0.0, 1.0))
+    return b
+
+
+def far_origin_rays(R=64):
+    """R rays from FAR above the big triangle of far_origin_recipe, away
+    from the small ones, nearly straight down; every 4th points up (a
+    miss). -> (ro, rd) (R, 3) float32."""
+    rs = np.random.RandomState(0)
+    ro = np.concatenate([rs.uniform(-2e5, 2e5, (R, 2)),
+                         np.full((R, 1), FAR)], 1).astype(np.float32)
+    rd = np.concatenate([rs.uniform(-1e-3, 1e-3, (R, 2)),
+                         -np.ones((R, 1))], 1)
+    rd[::4, 2] = 1.0
+    rd = (rd / np.linalg.norm(rd, axis=1, keepdims=True)).astype(np.float32)
     return ro, rd
 
 
