@@ -65,7 +65,25 @@ Phases, each printing its own line; any failure exits non-zero:
    ``tests/test_checkpoint.py:53-77`` through ``--checkpoint`` at 8 spp in
    chunks of 4 (an uninterrupted run; a 4-spp run relabelled as a paused
    8-spp run; the resumed run), whose image must be bitwise the
-   uninterrupted one, and near the tile-order render's.
+   uninterrupted one, and near the tile-order render's;
+11. ``parallel/``: (a) one NCCL rank in this process renders the stand-in
+   through ``render_image_sharded`` at 512x512, 4 spp, 8 bounces: exactly 4
+   segment launches per sample and none of the traversal kernels, the image
+   equal to the single-process render of the same pixels (rtol 1e-5 / atol
+   1e-6, the count of differing values printed); (b) two ranks on the one
+   card, spawned by ``parallel/shard.run_ranks`` with gloo (NCCL takes one
+   rank per card), render the same image sharded, equal to (a)'s, then
+   take ``grad_step_sharded`` on phase 8's 65,536 pixels at 1 spp (d/d
+   albedo and d/d ``v0``, replay-value, a zero target), 4 segment launches
+   per rank, loss and gradients equal to the same step in one process
+   within rtol 1e-4 / atol 1e-7; (c) the same two ranks split the stand-in
+   into 2 Morton shards, one each, and render 512x512 at 1 spp through the
+   ring with ``traversal="auto"``: exactly 2 * 2 * 8 cull launches per rank
+   (per bounce 2 closest-hit and 2 shadow ring steps) and nothing else, the
+   image within rtol 1e-4 / atol 1e-5 of the replicated cull render, each
+   rank's BVH bytes on the card against the replicated tables'; then phase
+   7's probe through the ring with ``traversal="packet"`` against the
+   replicated packet route. Each part prints its backend and wall seconds.
 
 The line before the last is the kernels' JSON record (each kernel's
 launches on its route, its error and time against its plain version, its
@@ -104,6 +122,8 @@ INV_SPP = 4               # samples per pixel of each of its steps
 WRONG_ALBEDO = (0.1, 0.8, 0.8)
 CLI_SPP = 8               # samples per pixel of the command line's renders
 CLI_EVERY = 4             # their checkpoint chunk
+PAR_SPP = 4               # samples per pixel of the sharded renders
+RING_SPP = 1              # and of the ring's render
 KERNELS = ("mega", "traverse_cull", "traverse_packet")
 # the card's peaks (NVIDIA H100 SXM data sheet): device memory bytes/s and
 # float32 FLOP/s outside the tensor cores
@@ -846,6 +866,245 @@ def cli_phase(dev, card):
     return launches
 
 
+def grad_params(sc):
+    """The gradient step's parameters: the albedo and the mesh's v0."""
+    return {"diffuse": sc.materials.diffuse, "v0": sc.triangles.v0}
+
+
+def set_grad_params(sc, p):
+    import dataclasses
+
+    return dataclasses.replace(
+        sc, materials=dataclasses.replace(sc.materials, diffuse=p["diffuse"]),
+        triangles=dataclasses.replace(sc.triangles, v0=p["v0"]))
+
+
+def table_bytes(tables):
+    """Device bytes of a traversal table set (ops/traverse.TriTables)."""
+    return sum(x.numel() * x.element_size() for x in (
+        tables.tri, tables.tri_lm, tables.sub, tables.nodes,
+        tables.leaf_bounds, tables.tri_index))
+
+
+def gloo_rank(group):
+    """Phase 11b-c on one rank of the gloo group (run by run_ranks): the
+    sharded render, the sharded gradient step, the ring render and the ring
+    probe, each counted from 0 just before to just after and timed."""
+    import torch
+    from offline_raytracer_tpu_torch import RenderConfig
+    from offline_raytracer_tpu_torch.parallel import ring, shard
+    from offline_raytracer_tpu_torch.render import tile_pixel_ids
+
+    dev = group.device
+    scene = bunny_stand_in(dev)
+    order = torch.from_numpy(tile_pixel_ids(W, H)).to(dev)
+    ids = torch.arange(W * H, dtype=torch.int32, device=dev)
+    out = {}
+
+    def counted(name, fn):
+        torch.cuda.synchronize(dev)
+        take_counts()
+        t0 = time.time()
+        res = fn()
+        torch.cuda.synchronize(dev)
+        out[name + "_s"] = time.time() - t0
+        out[name + "_launches"] = take_counts()
+        return res
+
+    cfg = RenderConfig(width=W, height=H, spp=PAR_SPP, max_bounces=BOUNCES,
+                       enable_dof=False)
+    gcfg = cfg.replace(spp=1, grad_mode="replay-value")
+    # this fresh process's first render and gradient step, on 4,096
+    # pixels and without collectives, so the timed ones below are warm
+    alone = shard.RankGroup(0, 1, dev)
+    shard.render_block_sharded(scene, gcfg, alone, ids[:4096])
+    shard.grad_step_sharded(scene, gcfg, alone, ids[:4096],
+                            torch.zeros((4096, 3), device=dev), grad_params,
+                            set_grad_params)
+    out["image"] = counted("sharded", lambda: shard.render_block_sharded(
+        scene, cfg, group, ids)).cpu().numpy()
+    gids = order[:GRAD_PIXELS]
+    loss, grads = counted("grad", lambda: shard.grad_step_sharded(
+        scene, gcfg, group, gids, torch.zeros((GRAD_PIXELS, 3), device=dev),
+        grad_params, set_grad_params))
+    out["loss"] = loss.item()
+    out["grads"] = {k: g.cpu().numpy() for k, g in grads.items()}
+
+    rcfg = cfg.replace(spp=RING_SPP, traversal="auto")
+    shards = ring.prepare_ring_shards(scene, group)
+    out["bvh_bytes"] = table_bytes(shards)
+    out["ring"] = counted("ring", lambda: ring.render_block_ring(
+        scene, rcfg, group, ids, shards=shards)).cpu().numpy()
+    out["probe"] = counted("probe", lambda: ring.render_block_ring(
+        scene, rcfg.replace(traversal="packet", spp=2), group,
+        order[::64], shards=shards)).cpu().numpy()
+    return out
+
+
+def parallel_phase(scene, order, card):
+    """Phase 11 (``parallel/``); returns the kernels' launch counts on the
+    sharded and ring paths."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from offline_raytracer_tpu_torch import RenderConfig
+    from offline_raytracer_tpu_torch.ops import mega
+    from offline_raytracer_tpu_torch.ops.traverse import tri_tables
+    from offline_raytracer_tpu_torch.parallel import shard
+    from offline_raytracer_tpu_torch.render import render_block
+
+    dev = scene.device
+    cfg = RenderConfig(width=W, height=H, spp=PAR_SPP, max_bounces=BOUNCES,
+                       enable_dof=False)
+    per_sample = len(mega.segment_plan(cfg)[0])
+    ids = torch.arange(W * H, dtype=torch.int32, device=dev)
+
+    def differ(a, b):
+        return int((a.view(np.int32) != b.view(np.int32)).sum())
+
+    # ---- 11a: NCCL, one rank, in this process
+    t0 = time.time()
+    shard.init_process_group(
+        num_processes=1, process_id=0, device="cuda", backend="nccl",
+        init_method=f"tcp://127.0.0.1:{shard.free_port()}", timeout_s=300)
+    try:
+        group = shard.make_group("cuda")
+        torch.cuda.synchronize()
+        take_counts()
+        t1 = time.time()
+        img = shard.render_image_sharded(scene, cfg, group)
+        torch.cuda.synchronize()
+        t_render = time.time() - t1
+        nccl_launches = take_counts()
+        backend = group.backend
+    finally:
+        dist.destroy_process_group()
+    t_a = time.time() - t0
+    t0 = time.time()
+    single = render_block(scene, cfg, ids, 0, PAR_SPP).cpu().numpy()
+    t_ref = time.time() - t0
+    single = single.reshape(H, W, 3)[::-1]
+    n_differ = differ(img, single)
+    log(f"phase 11a sharded render, backend {backend}, 1 rank on {dev}: "
+        f"bunny stand-in {W}x{H} {PAR_SPP} spp {BOUNCES} bounces, render "
+        f"{t_render:.3f} s ({t_a:.3f} s with the group's set-up; the "
+        f"single-process render of the same pixels {t_ref:.3f} s), "
+        f"{nccl_launches[0]} segment launches ({per_sample} per sample), "
+        f"{nccl_launches[1]} cull, {nccl_launches[2]} packet; {n_differ} of "
+        f"{img.size} values differ from the single-process render of the "
+        f"same pixels [{card}]")
+    if nccl_launches != (per_sample * PAR_SPP, 0, 0):
+        fail(f"11a: launches (segment, cull, packet) {nccl_launches}, want "
+             f"({per_sample * PAR_SPP}, 0, 0)")
+    np.testing.assert_allclose(img, single, rtol=1e-5, atol=1e-6)
+
+    # ---- 11b-c: two gloo ranks on the one card (NCCL takes one rank per
+    # card), spawned by parallel/shard.run_ranks
+    t0 = time.time()
+    ranks = shard.run_ranks(gloo_rank, 2, device="cuda", backend="gloo",
+                            timeout_s=300, deadline_s=600)
+    t_spawn = time.time() - t0
+    for r, o in enumerate(ranks):
+        if o["sharded_launches"] != (per_sample * PAR_SPP, 0, 0):
+            fail(f"11b rank {r}: sharded launches {o['sharded_launches']}")
+        if o["grad_launches"] != (per_sample, 0, 0):
+            fail(f"11b rank {r}: gradient step launches {o['grad_launches']}")
+    flat = ranks[0]["image"].reshape(H, W, 3)[::-1]
+    n_differ = differ(flat, img)
+    np.testing.assert_allclose(flat, img, rtol=1e-5, atol=1e-6)
+    if differ(ranks[1]["image"], ranks[0]["image"]):
+        fail("11b: the ranks hold different images")
+    log(f"phase 11b sharded render, backend gloo, 2 ranks on {dev}: "
+        f"{PAR_SPP} spp, per rank {ranks[0]['sharded_s']:.3f} / "
+        f"{ranks[1]['sharded_s']:.3f} s, segment launches "
+        f"{ranks[0]['sharded_launches'][0]} / "
+        f"{ranks[1]['sharded_launches'][0]} per rank (the whole run "
+        f"{t_spawn:.3f} s with 11b-c, the processes' start and a warm-up); "
+        f"{n_differ} "
+        f"of {img.size} values differ from 11a's image [{card}]")
+
+    gcfg = cfg.replace(spp=1, grad_mode="replay-value")
+    gids = order[:GRAD_PIXELS]
+    t0 = time.time()
+    loss, grads = shard.grad_step_sharded(
+        scene, gcfg, shard.make_group("cuda"), gids,
+        torch.zeros((GRAD_PIXELS, 3), device=dev), grad_params,
+        set_grad_params)
+    torch.cuda.synchronize()
+    t_single = time.time() - t0
+    worst = []
+    for k, g in grads.items():
+        g = g.cpu().numpy()
+        for o in ranks:
+            got = o["grads"][k]
+            if not np.isfinite(got).all() or not np.abs(got).max() > 0:
+                fail(f"11b: d loss / d {k} is not finite and nonzero")
+            np.testing.assert_allclose(got, g, rtol=1e-4, atol=1e-7,
+                                       err_msg=f"11b d {k}")
+        worst.append(f"d {k} max abs diff "
+                     f"{np.abs(ranks[0]['grads'][k] - g).max():.3e} "
+                     f"(max |g| {np.abs(g).max():.3e})")
+    np.testing.assert_allclose(ranks[0]["loss"], loss.item(), rtol=1e-4)
+    log(f"phase 11b sharded gradient step, backend gloo, 2 ranks: "
+        f"{GRAD_PIXELS} pixels 1 spp replay-value, loss "
+        f"{ranks[0]['loss']:.6f} (single process {loss.item():.6f}), "
+        f"{', '.join(worst)}; per rank {ranks[0]['grad_s']:.3f} / "
+        f"{ranks[1]['grad_s']:.3f} s and {ranks[0]['grad_launches'][0]} / "
+        f"{ranks[1]['grad_launches'][0]} segment launches, single process "
+        f"{t_single:.3f} s [{card}]")
+
+    # ---- 11c: the ring, the stand-in split into 2 Morton shards
+    want_cull = 2 * 2 * BOUNCES * RING_SPP
+    want_packet = 2 * 2 * BOUNCES * 2
+    for r, o in enumerate(ranks):
+        if o["ring_launches"] != (0, want_cull, 0):
+            fail(f"11c rank {r}: ring launches (segment, cull, packet) "
+                 f"{o['ring_launches']}, want (0, {want_cull}, 0)")
+        if o["probe_launches"] != (0, 0, want_packet):
+            fail(f"11c rank {r}: probe launches {o['probe_launches']}, want "
+                 f"(0, 0, {want_packet})")
+    rcfg = cfg.replace(spp=RING_SPP)
+    t0 = time.time()
+    rep = render_block(scene, rcfg.replace(traversal="cull"), ids, 0,
+                       RING_SPP).cpu().numpy()
+    torch.cuda.synchronize()
+    t_rep = time.time() - t0
+    got = ranks[0]["ring"]
+    bad = ~np.isclose(got, rep, rtol=1e-4, atol=1e-5)
+    log(f"phase 11c ring, backend gloo, 2 ranks on {dev}: {W}x{H} "
+        f"{RING_SPP} spp {BOUNCES} bounces, traversal auto (cull), per rank "
+        f"{ranks[0]['ring_s']:.3f} / {ranks[1]['ring_s']:.3f} s "
+        f"({ranks[0]['ring_s'] / want_cull * 1e3:.3f} ms per ring step), "
+        f"cull launches {ranks[0]['ring_launches'][1]} / "
+        f"{ranks[1]['ring_launches'][1]} per rank, 0 segment or packet; "
+        f"replicated cull render {t_rep:.3f} s; {int(bad.sum())} of "
+        f"{got.size} values outside rtol 1e-4 / atol 1e-5, "
+        f"{differ(got, rep)} differ at all; image mean {got.mean():.5f} "
+        f"[{card}]")
+    np.testing.assert_allclose(got, rep, rtol=1e-4, atol=1e-5)
+    rep_bytes = table_bytes(tri_tables(scene.tri_bvh))
+    log(f"  BVH tables on the card: rank 0 {ranks[0]['bvh_bytes']} B, rank 1 "
+        f"{ranks[1]['bvh_bytes']} B, replicated {rep_bytes} B (ratio "
+        f"{ranks[0]['bvh_bytes'] / rep_bytes:.3f}) [{card}]")
+    probe = render_block(scene, rcfg.replace(traversal="packet", spp=2),
+                         order[::64], 0, 2).cpu().numpy()
+    got = ranks[0]["probe"]
+    log(f"phase 11c ring probe: {got.shape[0]} pixels 2 spp, traversal "
+        f"packet, per rank {ranks[0]['probe_s']:.3f} / "
+        f"{ranks[1]['probe_s']:.3f} s, packet launches "
+        f"{ranks[0]['probe_launches'][2]} / {ranks[1]['probe_launches'][2]}; "
+        f"{int((~np.isclose(got, probe, rtol=1e-4, atol=1e-5)).sum())} of "
+        f"{got.size} values outside the bounds vs the replicated packet route "
+        f"[{card}]")
+    np.testing.assert_allclose(got, probe, rtol=1e-4, atol=1e-5)
+    return {"sharded": {"nccl_1_rank": nccl_launches[0],
+                        "gloo_2_ranks": [o["sharded_launches"][0]
+                                         for o in ranks],
+                        "grad_step": [o["grad_launches"][0] for o in ranks]},
+            "cull": [o["ring_launches"][1] for o in ranks],
+            "packet": [o["probe_launches"][2] for o in ranks]}
+
+
 def main() -> int:
     import torch
 
@@ -966,12 +1225,15 @@ def main() -> int:
     wave = wavefront_phases(scene, cfg, order, card)
     grad_launches = gradient_phases(scene, cfg, order, card)
     cli_launches = cli_phase(dev, card)
+    par = parallel_phase(scene, order, card)
+    wave[0]["ring_launches"] = par["cull"]
+    wave[1]["ring_launches"] = par["packet"]
     record = {"kernels": [{
         "name": "mega_segment", "route": "cuda",
         "source": "offline_raytracer_tpu_torch/csrc/mega.cu",
         "replaces": "offline_raytracer_tpu/ops/mega.py:418",
         "launches": launches, "grad_launches": grad_launches,
-        "cli_launches": cli_launches,
+        "cli_launches": cli_launches, "sharded_launches": par["sharded"],
         "max_abs_err": max(r["err"] for r in results),
         "ms": results[0]["ms"], "plain_ms": results[0]["plain_ms"],
         "bound_ms": results[0]["bound_ms"],

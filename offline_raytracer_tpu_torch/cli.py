@@ -8,8 +8,20 @@ Every knob of a render is a flag. It renders on the card unless
     python -m offline_raytracer_tpu_torch.cli --preset bunny --spp 64 --meter
 
 The image size is the .scn's ``screen`` or the preset's own unless
-``--width``/``--height`` say otherwise. The sharded and multi-host flags of
-the JAX package's CLI are not here.
+``--width``/``--height`` say otherwise.
+
+``--sharded`` splits the pixels over one rank per visible card (one rank on
+the CPU), each a process of its own (``parallel/shard.run_ranks``);
+``--multihost`` makes this process one rank of a group given by
+``--coordinator``/``--num-processes``/``--process-id`` or by torchrun's
+environment, and implies ``--sharded``:
+
+    torchrun --nproc-per-node 4 -m offline_raytracer_tpu_torch.cli \
+        --multihost --scene data/testscene.scn --spp 256
+
+Rank 0 alone writes the files and prints the JSON line. A sharded render
+takes no ``--checkpoint`` and no ``--meter`` (the JAX CLI drops them
+silently; here they are refused).
 """
 
 from __future__ import annotations
@@ -49,6 +61,16 @@ def build_parser():
     p.add_argument("--device", default="cuda",
                    help="torch device to render on (cuda by default; cpu "
                         "runs the kernels' plain versions)")
+    p.add_argument("--sharded", action="store_true",
+                   help="split the pixels over one rank per visible card")
+    p.add_argument("--multihost", action="store_true",
+                   help="join a process group (from the three flags below "
+                        "or torchrun's environment) as one rank; implies "
+                        "--sharded")
+    p.add_argument("--coordinator", default=None,
+                   help="host:port of rank 0 (with --multihost)")
+    p.add_argument("--num-processes", type=int, default=None)
+    p.add_argument("--process-id", type=int, default=None)
     p.add_argument("--out", default="out/render.hdr")
     p.add_argument("--png", default=None, help="also write a tonemapped png")
     p.add_argument("--exposure", type=float, default=1.0)
@@ -107,8 +129,50 @@ def config_from_args(args, width: int, height: int):
 
 def main(argv=None) -> int:
     """Render as the flags say; 0 on success (any failure raises)."""
-    args = build_parser().parse_args(argv)
+    parser = build_parser()
+    args = parser.parse_args(argv)
+    args.sharded = args.sharded or args.multihost
+    if args.sharded and (args.checkpoint or args.meter):
+        parser.error("--checkpoint and --meter do not combine with "
+                     "--sharded or --multihost")
+    if args.multihost:
+        import torch.distributed as dist
 
+        from offline_raytracer_tpu_torch.parallel.shard import (
+            init_process_group, make_group)
+
+        rank = init_process_group(args.coordinator, args.num_processes,
+                                  args.process_id, device=args.device)
+        print(f"multihost: rank {rank}", file=sys.stderr)
+        try:
+            render_main(make_group(args.device), args)
+        finally:
+            dist.destroy_process_group()
+    elif args.sharded:
+        import torch
+
+        from offline_raytracer_tpu_torch import cli
+        from offline_raytracer_tpu_torch.parallel.shard import run_ranks
+        from offline_raytracer_tpu_torch.scene.types import scene_device
+
+        dev = scene_device(args.device)
+        n = (torch.cuda.device_count()
+             if dev.type == "cuda" and dev.index is None else 1)
+        # by the package's name, which a spawned rank imports also when
+        # this module runs as __main__; a render takes as long as it takes
+        run_ranks(cli.render_main, n, args, device=args.device,
+                  deadline_s=float("inf"))
+    else:
+        render_main(None, args)
+    return 0
+
+
+def render_main(group, args) -> None:
+    """Load, render and write as ``args`` say: in this process alone
+    (``group`` None), or as one rank of a sharded render, where rank 0
+    alone writes the files and prints the JSON line."""
+    from offline_raytracer_tpu_torch.parallel.shard import (
+        render_image_sharded)
     from offline_raytracer_tpu_torch.render import (
         render_image, render_image_resumable)
     from offline_raytracer_tpu_torch.scene.types import scene_device
@@ -116,7 +180,7 @@ def main(argv=None) -> int:
     from offline_raytracer_tpu_torch.utils.profiling import (
         RenderMeter, device_trace)
 
-    device = scene_device(args.device)
+    device = scene_device(args.device) if group is None else group.device
     t0 = time.time()
     if args.scene:
         from offline_raytracer_tpu_torch.scene.scn import load_scene
@@ -133,10 +197,15 @@ def main(argv=None) -> int:
 
     cfg = config_from_args(args, w, h)
     meter = RenderMeter() if args.meter else None
+    trace_dir = args.trace_dir
+    if trace_dir and group is not None and group.size > 1:
+        trace_dir = os.path.join(trace_dir, f"rank{group.rank}")
 
     t0 = time.time()
-    with device_trace(args.trace_dir):
-        if args.checkpoint:
+    with device_trace(trace_dir):
+        if group is not None:
+            img = render_image_sharded(scene, cfg, group)
+        elif args.checkpoint:
             img = render_image_resumable(
                 scene, cfg, args.checkpoint,
                 checkpoint_every_spp=args.checkpoint_every,
@@ -150,6 +219,8 @@ def main(argv=None) -> int:
     n_paths = w * h * args.spp
     print(f"rendered {w}x{h} @ {args.spp}spp in {dt:.1f}s "
           f"({n_paths / dt / 1e6:.2f} Mpaths/s)", file=sys.stderr)
+    if group is not None and group.rank != 0:
+        return
 
     os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
     hdr.write_hdr(args.out, img)
@@ -160,7 +231,6 @@ def main(argv=None) -> int:
         print(f"wrote {args.png}", file=sys.stderr)
     print(json.dumps({"seconds": dt, "mpaths_per_s": n_paths / dt / 1e6,
                       "width": w, "height": h, "spp": args.spp}), flush=True)
-    return 0
 
 
 if __name__ == "__main__":

@@ -317,6 +317,20 @@ def make_bvh_trace_fn(scene, cfg, tables: TriTables | None = None):
     return trace
 
 
+def analytic_occluded(scene, ro, rd, t_far, t_min):
+    """(R,) bool: a sphere, box or cylinder in [t_min, t_far)? Dense
+    sweeps over each table."""
+    hit = torch.zeros(ro.shape[:1], dtype=torch.bool, device=ro.device)
+    tf = t_far[:, None]
+    if scene.spheres.radius.shape[0]:
+        hit |= (I.sphere_ts(scene.spheres, ro, rd, t_min) < tf).any(-1)
+    if scene.boxes.mat.shape[0]:
+        hit |= (I.box_ts(scene.boxes, ro, rd, t_min) < tf).any(-1)
+    if scene.cylinders.radius.shape[0]:
+        hit |= (I.cylinder_ts(scene.cylinders, ro, rd, t_min) < tf).any(-1)
+    return hit
+
+
 def make_bvh_occlusion_fn(scene, cfg, tables: TriTables | None = None):
     """occluded(ro, rd, t_far) -> (R,) bool: anything in [t_min, t_far)?
     Analytic primitives by dense sweeps, triangles by the any-hit query;
@@ -329,15 +343,7 @@ def make_bvh_occlusion_fn(scene, cfg, tables: TriTables | None = None):
 
     @torch.no_grad()
     def occluded(ro, rd, t_far):
-        hit = torch.zeros(ro.shape[:1], dtype=torch.bool, device=ro.device)
-        tf = t_far[:, None]
-        if scene.spheres.radius.shape[0]:
-            hit |= (I.sphere_ts(scene.spheres, ro, rd, cfg.t_min) < tf).any(-1)
-        if scene.boxes.mat.shape[0]:
-            hit |= (I.box_ts(scene.boxes, ro, rd, cfg.t_min) < tf).any(-1)
-        if scene.cylinders.radius.shape[0]:
-            hit |= (I.cylinder_ts(scene.cylinders, ro, rd, cfg.t_min)
-                    < tf).any(-1)
+        hit = analytic_occluded(scene, ro, rd, t_far, cfg.t_min)
         # lanes an analytic primitive already occludes are dead for the
         # triangle query
         tf_tri = torch.where(hit, 0.0, t_far)
