@@ -83,7 +83,9 @@ def build_parser():
     p.add_argument("--checkpoint-every", type=int, default=16,
                    help="spp between checkpoint writes")
     p.add_argument("--trace-dir", default=None,
-                   help="write a torch.profiler (Chrome trace) here")
+                   help="write a torch.profiler Chrome trace (trace.json) "
+                   "and the program's spans and counters (spans.jsonl) "
+                   "here")
     p.add_argument("--meter", action="store_true",
                    help="emit a rays/s render-meter JSON line (stderr)")
     return p

@@ -24,6 +24,8 @@ import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 
+from offline_raytracer_tpu_torch.utils import profiling
+
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "kernels")
@@ -86,6 +88,7 @@ def build(name: str) -> dict:
             raise RuntimeError(
                 f"nvcc failed for {src}:\n{proc.stdout}\n{proc.stderr}")
         os.replace(tmp, out)
+        profiling.count("kernels.built", 1)
     finally:
         if os.path.exists(tmp):
             os.remove(tmp)
@@ -105,10 +108,11 @@ def load(name: str):
     """The ctypes entry point of kernel library ``name`` (built if needed)."""
     fn = _loaded.get(name)
     if fn is None:
-        entry, argtypes = SIGNATURES[name]
-        lib = ctypes.CDLL(build(name)["path"])
-        fn = getattr(lib, entry)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-        _loaded[name] = fn
+        with profiling.span("kernels.load"):
+            entry, argtypes = SIGNATURES[name]
+            lib = ctypes.CDLL(build(name)["path"])
+            fn = getattr(lib, entry)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+            _loaded[name] = fn
     return fn

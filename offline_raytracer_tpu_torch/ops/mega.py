@@ -40,7 +40,7 @@ import torch
 from offline_raytracer_tpu_torch.ops.bvh import SUB
 from offline_raytracer_tpu_torch.ops.lights import sample_lights
 from offline_raytracer_tpu_torch.ops.traverse import leaf_major, tri_tables
-from offline_raytracer_tpu_torch.utils import rng
+from offline_raytracer_tpu_torch.utils import profiling, rng
 
 INF = 3.4e38
 LANE = 128          # columns of the consts table (entries per scene table)
@@ -189,6 +189,7 @@ class MegaTables:
     world_max: torch.Tensor  # (3,)
 
 
+@profiling.spanned("mega.tables")
 def prepare_tables(scene, cfg) -> MegaTables:
     consts, meta = pack_consts(scene, cfg)
     dev = consts.device
@@ -942,6 +943,7 @@ def segment_plan(cfg):
     return segs, sort_after
 
 
+@profiling.spanned("mega.paths")
 def render_paths_mega(scene, cfg, ro, rd, keys, collect_stats=False,
                       collect_records=False, tables: MegaTables | None = None):
     """Trace R paths start to finish through the segment launches.
@@ -998,13 +1000,17 @@ def render_paths_mega(scene, cfg, ro, rd, keys, collect_stats=False,
     counts, recs_id, recs_vis, recs_alive = [], [], [], []
 
     segs, sort_after = segment_plan(cfg)
+    live_in = R        # rays live on entry to the next segment
     for b, nf in segs:
-        u_all = torch.cat([rng.tagged_uniform_planes(keys_cur, b + i, 8)
-                           for i in range(nf)], 0).contiguous()
-        ls_all = torch.cat([light_sample_planes(u_all[8 * i:8 * i + 8])
-                            for i in range(nf)], 0).contiguous()
-        state, rad = mega_segment(state, u_all, ls_all, tables,
-                                  Segment.of(cfg, meta, b, nf))
+        with profiling.span("mega.draws"):
+            u_all = torch.cat([rng.tagged_uniform_planes(keys_cur, b + i, 8)
+                               for i in range(nf)], 0).contiguous()
+        with profiling.span("mega.lights"):
+            ls_all = torch.cat([light_sample_planes(u_all[8 * i:8 * i + 8])
+                                for i in range(nf)], 0).contiguous()
+        with profiling.span("mega.segment"):
+            state, rad = mega_segment(state, u_all, ls_all, tables,
+                                      Segment.of(cfg, meta, b, nf))
         rad_acc = rad_acc + rad[0:3]
         alive_p = rad[3 + 2 * nf:]
         if collect_records:
@@ -1013,14 +1019,25 @@ def render_paths_mega(scene, cfg, ro, rd, keys, collect_stats=False,
             recs_vis.append(rad[3 + nf:3 + 2 * nf][:, back])
             recs_alive.append(alive_p[:, back])
         counts.append(alive_p.sum(1))
+        if profiling.enabled():
+            # the kernel's lanes and the ray-bounces live on entry: the
+            # rays live into the segment, then those alive after each of
+            # its bounces but the last
+            profiling.count("mega.lanes", Rp * nf)
+            profiling.count("mega.live", live_in)
+            if nf > 1:
+                profiling.count("mega.live", counts[-1][:-1])
+            live_in = counts[-1][-1:]
         if b + nf - 1 < sort_after:
-            perm = torch.argsort(coherence_key(state, tables), stable=True)
-            state = state[:, perm].contiguous()
-            rad_acc = rad_acc[:, perm]
-            keys_cur = keys_cur[perm]
-            p_inv = torch.empty_like(perm)
-            p_inv[perm] = torch.arange(Rp, device=dev)
-            inv = p_inv[inv]
+            with profiling.span("mega.sort"):
+                perm = torch.argsort(coherence_key(state, tables),
+                                     stable=True)
+                state = state[:, perm].contiguous()
+                rad_acc = rad_acc[:, perm]
+                keys_cur = keys_cur[perm]
+                p_inv = torch.empty_like(perm)
+                p_inv[perm] = torch.arange(Rp, device=dev)
+                inv = p_inv[inv]
 
     radiance = rad_acc.T[inv[:R]]
     if collect_records:

@@ -22,7 +22,10 @@ gloo, since NCCL takes one rank per card. gloo moves host memory, so every
 collective and point-to-point of a CUDA tensor under gloo goes through
 ``_wire``, which copies it to the host and back; the compute stays on the
 card. Every group has a timeout, so a lost peer fails a collective instead
-of hanging it. ``run_ranks`` starts one process per rank.
+of hanging it. With the recorder on (``utils/profiling.py``) each
+collective is a span (``shard.all_gather``, ``shard.all_reduce``,
+``shard.ring_shift``) and counts the bytes of the tensor it returns on
+this rank (``shard.bytes``). ``run_ranks`` starts one process per rank.
 """
 
 from __future__ import annotations
@@ -42,6 +45,7 @@ import torch.distributed as dist
 from offline_raytracer_tpu_torch.config import RenderConfig
 from offline_raytracer_tpu_torch.render import render_block
 from offline_raytracer_tpu_torch.scene.types import Scene, scene_device
+from offline_raytracer_tpu_torch.utils import profiling
 
 # seconds a collective waits for its slowest peer before it fails: longer
 # than the longest render a rank makes between two collectives
@@ -142,25 +146,34 @@ def _wire(group: RankGroup, x: torch.Tensor) -> torch.Tensor:
     return x
 
 
+def _nbytes(x: torch.Tensor) -> int:
+    return x.numel() * x.element_size()
+
+
 def all_gather(group: RankGroup, x: torch.Tensor) -> torch.Tensor:
     """Every rank's ``x`` (equal shapes) concatenated along dim 0 in rank
     order, on every rank, on ``x``'s device (the JAX package's
     ``fetch_global``)."""
     if group.group is None:
         return x
-    w = _wire(group, x)
-    parts = [torch.empty_like(w) for _ in range(group.size)]
-    dist.all_gather(parts, w, group=group.group)
-    return torch.cat(parts).to(x.device)
+    with profiling.span("shard.all_gather"):
+        w = _wire(group, x)
+        parts = [torch.empty_like(w) for _ in range(group.size)]
+        dist.all_gather(parts, w, group=group.group)
+        out = torch.cat(parts).to(x.device)
+        profiling.count("shard.bytes", _nbytes(out))
+    return out
 
 
 def all_reduce_sum(group: RankGroup, x: torch.Tensor) -> torch.Tensor:
     """The sum of every rank's ``x`` on every rank."""
     if group.group is None:
         return x
-    w = _wire(group, x).clone()
-    dist.all_reduce(w, op=dist.ReduceOp.SUM, group=group.group)
-    return w.to(x.device)
+    with profiling.span("shard.all_reduce"):
+        w = _wire(group, x).clone()
+        dist.all_reduce(w, op=dist.ReduceOp.SUM, group=group.group)
+        profiling.count("shard.bytes", _nbytes(w))
+        return w.to(x.device)
 
 
 def ring_shift(group: RankGroup, x: torch.Tensor) -> torch.Tensor:
@@ -169,15 +182,17 @@ def ring_shift(group: RankGroup, x: torch.Tensor) -> torch.Tensor:
     rank waits on a send before its receive."""
     if group.size == 1:
         return x
-    w = _wire(group, x)
-    got = torch.empty_like(w)
-    ops = [dist.P2POp(dist.isend, w, (group.rank + 1) % group.size,
-                      group.group),
-           dist.P2POp(dist.irecv, got, (group.rank - 1) % group.size,
-                      group.group)]
-    for req in dist.batch_isend_irecv(ops):
-        req.wait()
-    return got.to(x.device)
+    with profiling.span("shard.ring_shift"):
+        w = _wire(group, x)
+        got = torch.empty_like(w)
+        ops = [dist.P2POp(dist.isend, w, (group.rank + 1) % group.size,
+                          group.group),
+               dist.P2POp(dist.irecv, got, (group.rank - 1) % group.size,
+                          group.group)]
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+        profiling.count("shard.bytes", _nbytes(got))
+        return got.to(x.device)
 
 
 def rank_block(group: RankGroup, x):

@@ -38,7 +38,7 @@ from offline_raytracer_tpu_torch.ops.traverse import (
     make_bvh_occlusion_fn, make_bvh_trace_fn, tri_tables)
 from offline_raytracer_tpu_torch.replay import mega_paths_diff, replay_paths
 from offline_raytracer_tpu_torch.scene.types import Scene, float_leaves
-from offline_raytracer_tpu_torch.utils import rng
+from offline_raytracer_tpu_torch.utils import profiling, rng
 
 
 def _trace_builder(scene: Scene, cfg: RenderConfig):
@@ -99,6 +99,7 @@ def _paths_fn(scene: Scene, cfg: RenderConfig,
     return f
 
 
+@profiling.spanned("render.block")
 def _accumulate(paths, scene, cfg, pixel_ids, sample_lo, n_samples,
                 collect_stats):
     dev = pixel_ids.device
@@ -108,9 +109,10 @@ def _accumulate(paths, scene, cfg, pixel_ids, sample_lo, n_samples,
     alive_acc = torch.zeros((cfg.max_bounces,), dtype=torch.float32,
                             device=dev)
     for k in range(n_samples):
-        keys = rng.pixel_sample_keys(
-            root, pixel_ids, torch.full_like(pixel_ids, sample_lo + k))
-        ro, rd = generate_rays(scene.camera, cfg, pixel_ids, keys)
+        with profiling.span("render.camera"):
+            keys = rng.pixel_sample_keys(
+                root, pixel_ids, torch.full_like(pixel_ids, sample_lo + k))
+            ro, rd = generate_rays(scene.camera, cfg, pixel_ids, keys)
         out = paths(ro, rd, keys, collect_stats=collect_stats)
         if collect_stats:
             out, alive = out

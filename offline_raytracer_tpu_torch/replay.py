@@ -26,6 +26,7 @@ import torch
 from offline_raytracer_tpu_torch.integrator import trace_paths
 from offline_raytracer_tpu_torch.ops import mega
 from offline_raytracer_tpu_torch.scene.types import float_leaves, with_leaves
+from offline_raytracer_tpu_torch.utils import profiling
 
 
 class _MegaPaths(torch.autograd.Function):
@@ -46,7 +47,7 @@ class _MegaPaths(torch.autograd.Function):
         need = ctx.needs_input_grad[5:]
         inputs = [x.detach().requires_grad_(n)
                   for x, n in zip([ro, rd, *leaves], need)]
-        with torch.enable_grad():
+        with torch.enable_grad(), profiling.span("replay.backward"):
             scene = with_leaves(ctx.scene, dict(zip(ctx.paths, inputs[2:])))
             rad = trace_paths(scene, ctx.cfg, None, inputs[0], inputs[1],
                               keys, replay=(ids, vis))
@@ -71,7 +72,9 @@ def mega_paths_diff(scene, cfg, ro, rd, keys, tables=None):
 def replay_paths(scene, cfg, ro, rd, keys, tables=None):
     """Records from a kernel launch on the detached scene and rays, then
     the replay's radiance, attached to ``scene``, ``ro`` and ``rd``."""
-    with torch.no_grad():
+    with torch.no_grad(), profiling.span("replay.records"):
         _, ids, vis, _ = mega.render_paths_mega(
             scene, cfg, ro, rd, keys, collect_records=True, tables=tables)
-    return trace_paths(scene, cfg, None, ro, rd, keys, replay=(ids, vis))
+    with profiling.span("replay.forward"):
+        return trace_paths(scene, cfg, None, ro, rd, keys,
+                           replay=(ids, vis))

@@ -19,6 +19,7 @@ from offline_raytracer_tpu_torch.ops.lights import (
     KIND_CYLINDER, KIND_MESH, KIND_SPHERE, build_area_lights)
 from offline_raytracer_tpu_torch.scene.types import (
     Boxes, Cylinders, Materials, Scene, Spheres, Triangles, scene_device)
+from offline_raytracer_tpu_torch.utils import profiling
 from offline_raytracer_tpu_torch.utils.math import rotation_matrix_to_z
 
 
@@ -146,6 +147,7 @@ class SceneBuilder:
         self.camera_quat = np.asarray(quat_xyzw, np.float32)
 
     # ---- build ---------------------------------------------------------
+    @profiling.spanned("scene.build")
     def build(self, width=None, height=None, bvh_leaf_size: int = 128,
               with_bvh: bool = True, device="cuda") -> Scene:
         device = scene_device(device)

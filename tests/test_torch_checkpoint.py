@@ -28,8 +28,9 @@ from offline_raytracer_tpu_torch.render import (
     tile_pixel_ids)
 from offline_raytracer_tpu_torch.scene.build import SceneBuilder
 from offline_raytracer_tpu_torch.utils import checkpoint as ckpt
+from offline_raytracer_tpu_torch.utils import profiling
 from offline_raytracer_tpu_torch.utils.profiling import (
-    PhaseTimer, RenderMeter, device_trace)
+    RenderMeter, device_trace)
 from torch_port_cases import analytic_recipe, assert_close
 
 torch.set_num_threads(2)
@@ -121,12 +122,14 @@ def test_render_image_meter_changes_nothing(scene):
 
 
 def test_phase_timer_and_meter():
-    t = PhaseTimer()
-    with t.phase("a"):
-        pass
-    with t.phase("a"):
-        pass
-    assert "a" in t.as_dict() and t.as_dict()["total"] >= 0
+    # named phases: the recorder's spans, totalled per name
+    with profiling.recording():
+        with profiling.span("a"):
+            pass
+        with profiling.span("a"):
+            pass
+    totals = profiling.span_totals(profiling.flush()["spans"])
+    assert totals["a"]["count"] == 2 and totals["a"]["seconds"] >= 0
 
     m = RenderMeter()
     m.add_launch(100, [80.0, 60.0, 0.0], nee_enabled=True, seconds=0.5)

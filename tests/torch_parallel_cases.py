@@ -154,3 +154,23 @@ def card_cases(group):
         out[name] = fn().cpu().numpy()
         out[name + "_launches"] = take_counts()
     return out
+
+
+def traced_sharded_render(group):
+    """The sharded render of the mesh scene with the recorder on (its spans
+    and counters, the gathered image's bytes), then, with the recorder
+    off, the alive counts of this rank's own block
+    (``render_block_stats``) and its paths."""
+    from offline_raytracer_tpu_torch.render import render_block_stats
+    from offline_raytracer_tpu_torch.utils import profiling
+
+    mesh = scene("mesh")
+    ids = pixel_ids()
+    with profiling.recording():
+        img = shard.render_block_sharded(mesh, CFG, group, ids)
+    got = profiling.flush()
+    own = shard.rank_block(group, ids)
+    _, alive = render_block_stats(mesh, CFG, own, 0, CFG.spp)
+    return {"spans": got["spans"], "counters": got["counters"],
+            "image_bytes": img.numel() * img.element_size(),
+            "alive": alive.numpy(), "paths": own.shape[0] * CFG.spp}
