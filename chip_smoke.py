@@ -6,8 +6,9 @@
 Phases, each printing its own line; any failure exits non-zero:
 
 1. the card (``nvidia-smi`` name and power limit), torch and CUDA versions;
-2. build the three kernels (``csrc/mega.cu``, ``csrc/traverse_cull.cu``,
-   ``csrc/traverse_packet.cu``) from this checkout, one nvcc each, at once;
+2. build the four kernels (``csrc/mega.cu``, ``csrc/traverse_cull.cu``,
+   ``csrc/traverse_packet.cu``, ``csrc/threefry.cu``) from this checkout,
+   one nvcc each, at once;
 3. hold the segment kernel against its plain PyTorch version on the exact
    segment inputs the main path produces: a 16,384-ray probe of the bunny
    stand-in (every 16th ray of the tile order, so it spans the whole image
@@ -16,13 +17,17 @@ Phases, each printing its own line; any failure exits non-zero:
    analytic scene's render against the committed golden image; then the
    four segments of one full-size sample (262,144 rays), each run at one
    lane per ray and at the lanes per ray ``mega.group_size`` picks, which
-   must give bitwise the same outputs, with each one's kernel ms;
+   must give bitwise the same outputs, with each one's kernel ms; then the
+   threefry kernel's draws of that sample (its per-ray keys, the camera's
+   uniforms and each segment's planes, 262,144 rays), each bitwise equal
+   to the plain int64 version's and timed against it and its bound;
 4. the slice: ``render_block_stats`` over the image of the bunny stand-in
    (a procedural mesh of 69,451 triangles, as many as bunny.ply, in the
    bunny configuration) at 512x512, 32 spp, 8 bounces, DOF off, one launch
    per sample, with the segment tables built once as ``render_image`` does,
    counting rays after the loop as bench.py does, and checking that every
-   segment went through the kernel;
+   segment went through the kernel and every draw through the threefry
+   kernel (one launch per segment and two per sample);
 5. the wavefront route's triangle queries: the inputs of the 16 queries
    of one full-size wavefront sample (262,144 rays, 8 bounces, NEE on:
    per bounce a closest-hit and a shadow any-hit query) are captured, and
@@ -45,7 +50,9 @@ Phases, each printing its own line; any failure exits non-zero:
    the mesh's ``v0``, ``grad_mode="replay-value"`` (segment launches with
    records, then the replay of the records under autograd): 1 untimed and 4
    timed steps with one sync, fwd+bwd Mrays/s counted as bench.py counts,
-   4 segment launches per step and none of the traversal kernels, finite
+   4 segment launches per step and none of the traversal kernels, at least
+   one threefry launch per segment and two per step (the replay draws
+   more), finite
    nonzero gradients equal to the kernel-value route's, the kernel's
    radiance against its replay's and its records against the plain
    version's on the step's rays;
@@ -90,7 +97,8 @@ launches on its route, its error and time against its plain version, its
 bound on this card from the bytes and operations of the same inputs, and
 the library call that computes the same function: none does; for the two
 traversal kernels times and bounds are per sample, summed over its 16
-queries, with each query's beside them); the last
+queries, with each query's beside them, and for the threefry kernel
+summed over a sample's 6 calls, with each call's beside them); the last
 line is
 ``{"ok": true, "device": {...}}``. Without CUDA it exits 1 and prints no
 result.
@@ -124,7 +132,7 @@ CLI_SPP = 8               # samples per pixel of the command line's renders
 CLI_EVERY = 4             # their checkpoint chunk
 PAR_SPP = 4               # samples per pixel of the sharded renders
 RING_SPP = 1              # and of the ring's render
-KERNELS = ("mega", "traverse_cull", "traverse_packet")
+KERNELS = ("mega", "traverse_cull", "traverse_packet", "threefry")
 # the card's peaks (NVIDIA H100 SXM data sheet): device memory bytes/s and
 # float32 FLOP/s outside the tensor cores
 PEAK_BYTES = 3.35e12
@@ -137,6 +145,11 @@ PEAK_FLOPS = 67e12
 SLAB_FLOP = 20
 TRI_FLOP = 13
 SHADE_FLOP = 300
+# a threefry-2x32 block's 20 funnel shifts and 20 xors, which only the
+# integer ALU pipe runs (its adds may go to the FMA pipe), at 64 a clock on
+# each of the card's 132 SMs at its 1.98 GHz boost clock
+THREEFRY_ALU_OPS = 40
+PEAK_ALU_OPS = 64 * 132 * 1.98e9
 
 
 def log(msg):
@@ -148,15 +161,15 @@ def fail(msg):
     sys.exit(1)
 
 
-def bunny_stand_in(device):
+def bunny_stand_in(device, size=W):
     """The bunny configuration around a procedural mesh of as many
     triangles as bunny.ply, scaled to bunny.ply's extent (bunny_builder
-    then scales by 8)."""
+    then scales by 8), for a size x size image (512 x 512 by default)."""
     from offline_raytracer_tpu_torch.models.scenes import bunny_builder
     from torch_port_cases import procedural_mesh
 
     v, f = procedural_mesh(N_TRIS)
-    return bunny_builder(v * 0.075, f).build(W, H, device=device)
+    return bunny_builder(v * 0.075, f).build(size, size, device=device)
 
 
 def capture_segments(scene, cfg, pixel_ids):
@@ -560,6 +573,70 @@ def wavefront_phases(scene, cfg, order, card):
         for k in ("traverse_cull", "traverse_packet")]
 
 
+def threefry_bound(nbytes, blocks):
+    """(bound_ms, bound_by) of a threefry launch: nbytes moved once at the
+    card's bandwidth, or the ALU issue of its threefry blocks."""
+    by_bytes = nbytes / PEAK_BYTES * 1e3
+    by_ops = blocks * THREEFRY_ALU_OPS / PEAK_ALU_OPS * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops,
+                                                           "operations")
+
+
+def threefry_phase(cfg, order, card):
+    """Phase 3's draws: the threefry kernel's calls of one full-size sample
+    of the main path (the per-ray keys, the camera's uniforms, each
+    segment's planes) against the plain int64 version on the same inputs,
+    bit for bit, each timed beside its bound. Returns the kernels record's
+    entry."""
+    import torch
+    from offline_raytracer_tpu_torch.ops import mega
+    from offline_raytracer_tpu_torch.utils import rng
+
+    R = order.shape[0]
+    root = rng.render_key(cfg.seed, order.device)
+    smp = torch.zeros_like(order)
+    keys = rng.pixel_sample_keys_cuda(root, order, smp)
+    draws = [("keys", lambda: rng.pixel_sample_keys_cuda(root, order, smp),
+              lambda: rng.pixel_sample_keys_plain(root, order, smp),
+              16 + R * (2 * order.element_size() + 16), 2 * R)]
+    for tag_lo, n_tags, n in ([(rng.CAMERA_TAG, 1, 4)]
+                              + [(b, nf, 8)
+                                 for b, nf in mega.segment_plan(cfg)[0]]):
+        draws.append((
+            "camera planes" if tag_lo == rng.CAMERA_TAG
+            else f"segment b={tag_lo} nf={n_tags} planes",
+            lambda a=(keys, tag_lo, n_tags, n): rng.uniform_planes_cuda(*a),
+            lambda a=(keys, tag_lo, n_tags, n): rng.uniform_planes_plain(*a),
+            16 * R + 4 * n_tags * n * R, R * n_tags * ((n + 1) // 2)))
+    calls = []
+    for name, kernel, plain, nbytes, blocks in draws:
+        got, want = kernel(), plain()
+        if got.shape != want.shape or not torch.equal(
+                got.view(torch.int32 if got.dtype == torch.float32
+                         else torch.int64),
+                want.view(torch.int32 if want.dtype == torch.float32
+                          else torch.int64)):
+            fail(f"threefry {name}: the kernel's {tuple(got.shape)} "
+                 f"differs from the plain version's {tuple(want.shape)}")
+        k_ms, p_ms = time_ms(kernel, 50), time_ms(plain, 3)
+        b_ms, b_by = threefry_bound(nbytes, blocks)
+        log(f"  threefry {name}: R={R}, bitwise equal to the plain version, "
+            f"kernel {k_ms:.4f} ms, plain {p_ms:.3f} ms, bound {b_ms:.4f} ms "
+            f"({b_by}: {nbytes} bytes, {blocks} blocks) [{card}]")
+        calls.append({"call": name, "ms": k_ms, "plain_ms": p_ms,
+                      "bound_ms": b_ms, "bound_by": b_by})
+    sums = {f: sum(c[f] for c in calls) for f in ("ms", "plain_ms",
+                                                   "bound_ms")}
+    log(f"  threefry draws of a full-size sample ({len(calls)} calls): "
+        f"kernel {sums['ms']:.4f} ms, plain {sums['plain_ms']:.3f} ms, "
+        f"bound {sums['bound_ms']:.4f} ms [{card}]")
+    return {"name": "threefry_draw", "route": "cuda",
+            "source": "offline_raytracer_tpu_torch/csrc/threefry.cu",
+            "replaces": None, "max_abs_err": 0.0, **sums,
+            "bound_by": max(calls, key=lambda c: c["bound_ms"])["bound_by"],
+            "library_ms": None, "calls": calls}
+
+
 def take_counts():
     """Launches of the (mega, cull, packet) kernels since the last call;
     sets the three counts to 0."""
@@ -619,6 +696,7 @@ def gradient_phases(scene, cfg, order, card):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     total = take_counts()[0]
+    draws_before = rng.KERNEL_LAUNCHES
     t0 = time.time()
     for _ in range(GRAD_STEPS):
         loss, grads = grad_step(scene, gcfg, gids, "replay-value")
@@ -630,6 +708,10 @@ def gradient_phases(scene, cfg, order, card):
     if step_launches != per_step * GRAD_STEPS or cull or packet:
         fail(f"gradient steps launched {step_launches} segments (want "
              f"{per_step * GRAD_STEPS}), cull {cull}, packet {packet}")
+    step_draws = (rng.KERNEL_LAUNCHES - draws_before) // GRAD_STEPS
+    if step_draws < per_step + 2:
+        fail(f"gradient steps launched {step_draws} threefry kernels per "
+             f"step, want at least {per_step + 2}")
     for name, g in zip(("albedo", "v0"), grads):
         if not bool(torch.isfinite(g).all()) or not g.abs().max() > 0:
             fail(f"d loss / d {name} is not finite and nonzero")
@@ -638,8 +720,8 @@ def gradient_phases(scene, cfg, order, card):
         f"{gcfg.max_bounces} bounces, replay-value, {dt * 1e3:.3f} ms per "
         f"step ({GRAD_STEPS} steps, one sync), {rays:.0f} rays per step, "
         f"{mrays:.3f} fwd+bwd Mrays/s, loss {loss.item():.6f}, "
-        f"{step_launches // GRAD_STEPS} segment launches per step, 0 cull "
-        f"or packet, peak device memory {peak:.1f} MiB, |d albedo| max "
+        f"{step_launches // GRAD_STEPS} segment and {step_draws} threefry "
+        f"launches per step, 0 cull or packet, peak device memory {peak:.1f} MiB, |d albedo| max "
         f"{grads[0].abs().max().item():.4e}, |d v0| max "
         f"{grads[1].abs().max().item():.4e} [{card}]")
     _, k_grads = grad_step(scene, gcfg, gids, "kernel-value")
@@ -1118,6 +1200,7 @@ def main() -> int:
     from offline_raytracer_tpu_torch.render import (
         render_block_stats, render_image, tile_pixel_ids)
     from offline_raytracer_tpu_torch.scene.build import SceneBuilder
+    from offline_raytracer_tpu_torch.utils import rng
     from torch_port_cases import assert_close, shaped_recipe
 
     dev = torch.device("cuda", 0)
@@ -1187,12 +1270,14 @@ def main() -> int:
     log(f"  full-size sample: segment kernels "
         f"{sum(x['ms'] for x in segments):.4f} ms at the rule's G, "
         f"{sum(x['ms_g1'] for x in segments):.4f} ms at G=1 [{card}]")
+    draws = threefry_phase(cfg, order, card)
 
     # ---- phase 4: the slice through the kernel
     per_sample = len(mega.segment_plan(cfg)[0])
     nee = cfg.enable_nee and scene.n_lights > 0
     torch.cuda.synchronize()
     mega.KERNEL_LAUNCHES = 0
+    rng.KERNEL_LAUNCHES = 0
     t0 = time.time()
     tables = mega.prepare_tables(scene, cfg)
     acc = torch.zeros((W * H, 3), dtype=torch.float32, device=dev)
@@ -1214,13 +1299,17 @@ def main() -> int:
     launches = mega.KERNEL_LAUNCHES
     if launches != per_sample * SPP:
         fail(f"kernel launches {launches}, want {per_sample * SPP}")
+    draws["launches"] = rng.KERNEL_LAUNCHES
+    if draws["launches"] != (per_sample + 2) * SPP:
+        fail(f"threefry launches {draws['launches']}, want "
+             f"{(per_sample + 2) * SPP} (one per segment, keys and camera)")
     if not np.isfinite(img).all() or not img.mean() > 0:
         fail(f"slice image broken: mean {img.mean()}")
     mrays = rays / dt / 1e6
     log(f"phase 4 slice: bunny stand-in {W}x{H} {SPP} spp {BOUNCES} bounces "
         f"in {dt:.3f} s, {rays:.0f} rays, {mrays:.3f} Mrays/s, "
-        f"{launches} kernel launches, image mean {img.mean():.5f} "
-        f"[{card}]")
+        f"{launches} segment and {draws['launches']} threefry kernel "
+        f"launches, image mean {img.mean():.5f} [{card}]")
 
     wave = wavefront_phases(scene, cfg, order, card)
     grad_launches = gradient_phases(scene, cfg, order, card)
@@ -1239,7 +1328,7 @@ def main() -> int:
         "bound_ms": results[0]["bound_ms"],
         "bound_by": results[0]["bound_by"], "library_ms": None,
         "group": {x["b"]: x["group"] for x in segments},
-        "segments": segments}] + wave}
+        "segments": segments}] + wave + [draws]}
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

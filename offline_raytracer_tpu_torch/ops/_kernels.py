@@ -5,11 +5,15 @@ library with a plain C entry point, cached under ``build/kernels/`` at the
 repository root keyed on a hash of the source, the headers beside it
 (``csrc/*.cuh``) and the flags, and loaded with ctypes. No fast-math
 flags: the kernels rely on IEEE division, on ``inf`` from ``1/0`` in slab
-tests and on exact ``sqrtf``. All three are also built with
+tests and on exact ``sqrtf``. The three ray kernels (``mega``,
+``traverse_cull``, ``traverse_packet``) are also built with
 ``-fmad=false``: no a*b+c is contracted to an FMA, so the traversal
 kernels' triangle test rounds exactly as the plain PyTorch version's does,
 and each kernel's instantiations for each group size round alike (bitwise
-equal outputs). ``build_all`` starts one nvcc per source at once.
+equal outputs). The fourth library, ``threefry`` (``csrc/threefry.cu``),
+draws the counter-based uniforms and per-ray keys of ``utils/rng.py`` for
+CUDA tensors: 32-bit integer rounds and one exact product, so it needs no
+extra flag. ``build_all`` starts one nvcc per source at once.
 """
 
 from __future__ import annotations
@@ -33,19 +37,21 @@ BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "kernels")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
 # argument types of each kernel library's C entry point
 SIGNATURES = {
     "mega": ("mega_segment",
              [_P] * 10 + [_I] * 16 + [_F] * 3 + [_P]),
     "traverse_cull": ("traverse_cull", [_P] * 8 + [_I] * 5 + [_F, _P]),
     "traverse_packet": ("traverse_packet", [_P] * 8 + [_I] * 5 + [_F, _P]),
+    "threefry": ("threefry_draw", [_I] + [_P] * 4 + [_I, _U, _I, _I, _P]),
 }
 # flags a library adds to NVCC_FLAGS
 EXTRA_FLAGS = {
     "mega": ["-fmad=false"],
     "traverse_cull": ["-fmad=false"],
     "traverse_packet": ["-fmad=false"],
+    "threefry": [],
 }
 
 _loaded: dict = {}

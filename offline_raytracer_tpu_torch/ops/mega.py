@@ -1003,8 +1003,7 @@ def render_paths_mega(scene, cfg, ro, rd, keys, collect_stats=False,
     live_in = R        # rays live on entry to the next segment
     for b, nf in segs:
         with profiling.span("mega.draws"):
-            u_all = torch.cat([rng.tagged_uniform_planes(keys_cur, b + i, 8)
-                               for i in range(nf)], 0).contiguous()
+            u_all = rng.uniform_planes(keys_cur, b, nf, 8)
         with profiling.span("mega.lights"):
             ls_all = torch.cat([light_sample_planes(u_all[8 * i:8 * i + 8])
                                 for i in range(nf)], 0).contiguous()

@@ -8,14 +8,30 @@ packages trace the same paths from the same (seed, pixel, sample, bounce):
 - uniform column j of a tag comes from counter ``(tag, j & ~1)``, word
   ``j & 1``, mapped to ``(word >> 8) * 2**-24``.
 
-Words are held in int64 tensors masked to 32 bits: PyTorch has no uint32
-add or shift on the CPU, and int64 arithmetic runs on every device.
-Keys are (R, 2) int64 tensors.
+Keys are (R, 2) int64 tensors holding 32-bit words. The draws and the
+per-ray keys dispatch on the tensors' device, as ``ops/mega.mega_segment``
+does:
+
+- CUDA tensors take the hand-written kernel ``csrc/threefry.cu`` (one
+  launch per ``uniform_planes`` or ``pixel_sample_keys`` call, counted in
+  ``KERNEL_LAUNCHES``), which draws in native uint32 arithmetic;
+- any other tensors take the plain version (``uniform_planes_plain``,
+  ``pixel_sample_keys_plain``): the rounds on int64 words masked to 32
+  bits, since PyTorch has no uint32 add or shift on the CPU. It is the
+  reference the kernel is tested against, and the CPU tests hold it to
+  ``jax.random``.
+
+Both give the same bits, so the choice changes no output. While the
+recorder is on (``utils/profiling``), the counters ``rng.kernel_planes``
+and ``rng.plain_planes`` add the uniform planes (rows of R floats) each
+route wrote.
 """
 
 from __future__ import annotations
 
 import torch
+
+from offline_raytracer_tpu_torch.utils import profiling
 
 _MASK = 0xFFFFFFFF
 _ROT_A = (13, 15, 26, 6)
@@ -23,6 +39,12 @@ _ROT_B = (17, 29, 16, 24)
 
 # tag for camera draws, disjoint from bounce indices (tags 0..max_bounces)
 CAMERA_TAG = 0x00C0FFEE
+
+# launches of the CUDA kernel (both modes); chip runs read it to prove the
+# draws went through the kernel
+KERNEL_LAUNCHES = 0
+# the kernel's modes (csrc/threefry.cu)
+_MODE_PLANES, _MODE_KEYS = 0, 1
 
 
 def _rotl(x, r):
@@ -67,12 +89,27 @@ def fold_in(k0, k1, data):
     return threefry2x32(k0, k1, torch.zeros_like(data), data)
 
 
-def pixel_sample_keys(root, pixel_ids, sample_ids):
-    """Per-ray keys (R, 2) for (pixel, spp-sample) pairs.
+def _launch(mode, out, in0, in1=None, in2=None, tag_lo=0, n_tags=0, n=0):
+    """One launch of ``csrc/threefry.cu`` writing ``out``, on the current
+    stream, no sync."""
+    global KERNEL_LAUNCHES
+    from offline_raytracer_tpu_torch.ops import _kernels
 
-    A ray's whole random sequence is a function of (seed, pixel, sample),
-    never of its slot in a batch.
-    """
+    fn = _kernels.load("threefry")
+    with torch.cuda.device(out.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(mode, in0.data_ptr(),
+                 None if in1 is None else in1.data_ptr(),
+                 None if in2 is None else in2.data_ptr(), out.data_ptr(),
+                 out.shape[-1] if mode == _MODE_PLANES else out.shape[0],
+                 tag_lo, n_tags, n, stream)
+    if err != 0:
+        raise RuntimeError(f"threefry kernel launch failed: CUDA error {err}")
+    KERNEL_LAUNCHES += 1
+
+
+def pixel_sample_keys_plain(root, pixel_ids, sample_ids):
+    """``pixel_sample_keys`` in int64 PyTorch operations, on any device."""
     pix = pixel_ids.to(torch.int64) & _MASK
     smp = sample_ids.to(torch.int64) & _MASK
     k0, k1 = fold_in(root[0].expand_as(pix), root[1].expand_as(pix), pix)
@@ -80,13 +117,45 @@ def pixel_sample_keys(root, pixel_ids, sample_ids):
     return torch.stack([k0, k1], dim=-1)
 
 
+def pixel_sample_keys_cuda(root, pixel_ids, sample_ids):
+    """``pixel_sample_keys`` in one kernel launch, on CUDA tensors."""
+    dev = pixel_ids.device
+    if dev.type != "cuda" or root.device != dev or sample_ids.device != dev:
+        raise ValueError(f"pixel_sample_keys_cuda needs the root, pixel ids "
+                         f"and sample ids on one CUDA device, got "
+                         f"{root.device}, {dev}, {sample_ids.device}")
+    if root.shape != (2,) or root.dtype != torch.int64:
+        raise ValueError(f"root must be a (2,) int64 key, got "
+                         f"{tuple(root.shape)} {root.dtype}")
+    pix, smp = torch.broadcast_tensors(pixel_ids, sample_ids)
+    out = torch.empty(pix.shape + (2,), dtype=torch.int64, device=dev)
+    if out.numel():
+        # fold_in reads the low 32 bits of an id, all that int32 keeps
+        pix, smp = (i.to(torch.int32).reshape(-1).contiguous()
+                    for i in (pix, smp))
+        _launch(_MODE_KEYS, out.view(-1, 2), root.contiguous(), pix, smp)
+    return out
+
+
+def pixel_sample_keys(root, pixel_ids, sample_ids):
+    """Per-ray keys (R, 2) for (pixel, spp-sample) pairs: the kernel for
+    CUDA pixel ids, the plain version otherwise.
+
+    A ray's whole random sequence is a function of (seed, pixel, sample),
+    never of its slot in a batch.
+    """
+    if pixel_ids.device.type == "cuda":
+        return pixel_sample_keys_cuda(root, pixel_ids, sample_ids)
+    return pixel_sample_keys_plain(root, pixel_ids, sample_ids)
+
+
 def _bits_to_unit(x):
     """32-bit word -> float32 in [0, 1) from its top 24 bits."""
     return (x >> 8).to(torch.float32) * (1.0 / (1 << 24))
 
 
-def tagged_uniform_planes(keys, tag: int, n: int):
-    """(R, 2) keys + counter tag -> (n, R) uniform planes."""
+def _tag_planes(keys, tag: int, n: int):
+    """The plain (n, R) uniform planes of one tag."""
     k0, k1 = keys[:, 0], keys[:, 1]
     x0 = torch.full_like(k0, int(tag) & _MASK)
     cols = []
@@ -94,6 +163,60 @@ def tagged_uniform_planes(keys, tag: int, n: int):
         a, b = threefry2x32(k0, k1, x0, torch.full_like(k0, j))
         cols += [a, b]
     return torch.stack([_bits_to_unit(c) for c in cols[:n]], 0)
+
+
+def _check_draw(keys, n_tags: int, n: int):
+    if (not isinstance(keys, torch.Tensor) or keys.dtype != torch.int64
+            or keys.dim() != 2 or keys.shape[1] != 2):
+        raise ValueError(
+            f"keys must be an (R, 2) int64 tensor, got "
+            f"{getattr(keys, 'dtype', type(keys))} "
+            f"{tuple(getattr(keys, 'shape', ()))}")
+    if n_tags < 0 or n < 0:
+        raise ValueError(f"n_tags and n must be >= 0, got {n_tags}, {n}")
+
+
+def uniform_planes_plain(keys, tag_lo: int, n_tags: int, n: int):
+    """``uniform_planes`` in int64 PyTorch operations, on any device."""
+    _check_draw(keys, n_tags, n)
+    if n_tags * n == 0:
+        return torch.empty((0, keys.shape[0]), dtype=torch.float32,
+                           device=keys.device)
+    return torch.cat([_tag_planes(keys, tag_lo + i, n)
+                      for i in range(n_tags)], 0)
+
+
+def uniform_planes_cuda(keys, tag_lo: int, n_tags: int, n: int):
+    """``uniform_planes`` in one kernel launch, on CUDA tensors."""
+    _check_draw(keys, n_tags, n)
+    if keys.device.type != "cuda":
+        raise ValueError(f"uniform_planes_cuda needs CUDA tensors, got "
+                         f"{keys.device}")
+    out = torch.empty((n_tags * n, keys.shape[0]), dtype=torch.float32,
+                      device=keys.device)
+    if out.numel():
+        _launch(_MODE_PLANES, out, keys.contiguous(),
+                tag_lo=int(tag_lo) & _MASK, n_tags=n_tags, n=n)
+    return out
+
+
+def uniform_planes(keys, tag_lo: int, n_tags: int, n: int):
+    """(R, 2) keys -> (n_tags * n, R) float32 uniform planes: rows
+    [i * n, i * n + n) are the n uniforms of tag ``tag_lo + i`` (as
+    ``tagged_uniform_planes``). The kernel for CUDA keys, the plain version
+    otherwise; counted in ``rng.kernel_planes`` or ``rng.plain_planes``."""
+    if isinstance(keys, torch.Tensor) and keys.device.type == "cuda":
+        out = uniform_planes_cuda(keys, tag_lo, n_tags, n)
+        profiling.count("rng.kernel_planes", out.shape[0])
+    else:
+        out = uniform_planes_plain(keys, tag_lo, n_tags, n)
+        profiling.count("rng.plain_planes", out.shape[0])
+    return out
+
+
+def tagged_uniform_planes(keys, tag: int, n: int):
+    """(R, 2) keys + counter tag -> (n, R) uniform planes."""
+    return uniform_planes(keys, tag, 1, n)
 
 
 def tagged_uniforms(keys, tag: int, n: int):

@@ -7,7 +7,7 @@ import pytest
 import torch
 
 from offline_raytracer_tpu.utils import rng as jax_rng
-from offline_raytracer_tpu_torch.utils import rng
+from offline_raytracer_tpu_torch.utils import profiling, rng
 
 torch.set_num_threads(2)
 
@@ -58,3 +58,75 @@ def test_tagged_uniform_planes_bitwise(tag, n):
     np.testing.assert_array_equal(
         rng.tagged_uniforms(tk, tag, n).numpy(),
         np.asarray(jax_rng.tagged_uniforms(jk, tag, n)))
+
+
+@pytest.fixture
+def recorder_off():
+    """The recorder off and empty before and after the test."""
+    profiling.disable()
+    profiling.flush()
+    yield
+    profiling.disable()
+    profiling.flush()
+
+
+@pytest.mark.parametrize("tag_lo,n_tags,n", [(0, 8, 8), (5, 3, 7),
+                                             (11, 1, 1), (3, 2, 0),
+                                             (rng.CAMERA_TAG, 1, 4),
+                                             (rng.CAMERA_TAG - 1, 2, 3)])
+def test_uniform_planes_bitwise(tag_lo, n_tags, n):
+    """One multi-tag call equals the per-tag planes stacked, and the JAX
+    package's draws, bit for bit (n odd and n = 0 included)."""
+    rs = np.random.RandomState(n_tags * 100 + n)
+    ids = rs.randint(0, 1 << 18, 777).astype(np.int32)
+    jk, tk = _keys(9, ids, np.full(777, 4, np.int32))
+    got = rng.uniform_planes(tk, tag_lo, n_tags, n)
+    assert got.dtype == torch.float32 and got.shape == (n_tags * n, 777)
+    if n == 0:
+        return
+    stacked = torch.cat([rng.tagged_uniform_planes(tk, tag_lo + i, n)
+                         for i in range(n_tags)])
+    assert torch.equal(got, stacked)
+    want = np.concatenate([np.asarray(jax_rng.tagged_uniform_planes(
+        jk, tag_lo + i, n)) for i in range(n_tags)])
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("keys,n_tags,n", [
+    (torch.zeros((4, 2), dtype=torch.int32), 1, 8),
+    (torch.zeros((4, 2), dtype=torch.float32), 1, 8),
+    (torch.zeros((4, 3), dtype=torch.int64), 1, 8),
+    (torch.zeros((4,), dtype=torch.int64), 1, 8),
+    (torch.zeros((4, 2), dtype=torch.int64), 1, -1),
+    (torch.zeros((4, 2), dtype=torch.int64), -1, 8),
+])
+def test_uniform_planes_bad_input_raises(keys, n_tags, n):
+    with pytest.raises(ValueError):
+        rng.uniform_planes(keys, 0, n_tags, n)
+
+
+def test_cuda_routes_refuse_cpu_tensors():
+    keys = torch.zeros((4, 2), dtype=torch.int64)
+    ids = torch.arange(4, dtype=torch.int32)
+    with pytest.raises(ValueError):
+        rng.uniform_planes_cuda(keys, 0, 1, 8)
+    with pytest.raises(ValueError):
+        rng.pixel_sample_keys_cuda(rng.render_key(1), ids, ids)
+
+
+def test_cpu_takes_plain_route(recorder_off):
+    """CPU tensors draw in the plain version: ``rng.plain_planes`` counts
+    every plane, ``rng.kernel_planes`` and ``KERNEL_LAUNCHES`` do not
+    move."""
+    ids = torch.arange(300, dtype=torch.int32)
+    before = rng.KERNEL_LAUNCHES
+    with profiling.recording():
+        keys = rng.pixel_sample_keys(rng.render_key(5), ids,
+                                     torch.full_like(ids, 2))
+        rng.uniform_planes(keys, 0, 3, 8)
+        rng.tagged_uniforms(keys, rng.CAMERA_TAG, 4)
+        rng.bounce_uniforms(keys, 7, 5)
+    counters = profiling.flush()["counters"]
+    assert counters["rng.plain_planes"] == 3 * 8 + 4 + 5
+    assert "rng.kernel_planes" not in counters
+    assert rng.KERNEL_LAUNCHES == before
