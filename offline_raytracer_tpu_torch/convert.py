@@ -9,6 +9,8 @@ The caller flattens the JAX scene, so this package needs no jax. The BVH's
 static ``m_occ`` and ``n_leaves`` are not pytree leaves; they are
 recovered from the leaf bounds. The sub-leaf boxes, which the JAX BVH does
 not hold, are built here from the triangles the BVH was built from.
+A JAX scene has no sky; the optional leaves ``.sky.bottom``, ``.sky.top``
+and ``.sky.up`` give the port's (``scene.types.Sky``).
 """
 
 from __future__ import annotations
@@ -22,7 +24,7 @@ from offline_raytracer_tpu_torch.ops.bvh import (
     TriBVH, heap_leaf_count, sub_bounds_rows)
 from offline_raytracer_tpu_torch.ops.lights import AreaLights
 from offline_raytracer_tpu_torch.scene.types import (
-    Boxes, Camera, Cylinders, Materials, Scene, Spheres, Triangles,
+    Boxes, Camera, Cylinders, Materials, Scene, Sky, Spheres, Triangles,
     scene_device)
 
 _TABLES = {
@@ -51,6 +53,8 @@ def scene_from_arrays(arrays: dict, device="cuda") -> Scene:
         return cls(**fields)
 
     kw = {name: table(cls, tree.pop(name)) for name, cls in _TABLES.items()}
+    if "sky" in tree:
+        kw["sky"] = table(Sky, tree.pop("sky"))
     bvh = tree.pop("tri_bvh", None)
     if bvh is not None:
         lb = bvh["leaf_bounds"]

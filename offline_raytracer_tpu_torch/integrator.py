@@ -9,6 +9,16 @@ draws its uniforms with ``rng.bounce_uniforms(keys, b, 8)`` in the JAX
 column layout ([0] light pick, [1:4] light point, [4] RR, [5:8] BSDF
 sample), so both packages trace the same paths draw for draw.
 
+A live ray that misses reaches the scene's sky when it has one
+(``scene.types.Sky``), added with MIS weight 1 as NEE never samples it;
+without a sky a miss ends the path with nothing added, and no operation of
+the sky's runs. While the recorder of ``utils/profiling.py`` is on, each
+bounce is spans ``wave.hit`` (the closest-hit query, or the replay's
+recompute of the recorded winner), ``wave.shade`` (the rest, the shadow
+query in ``wave.occlusion`` within it) and counts ``wave.lanes`` (lanes the
+bounce runs), ``wave.live`` (lanes live on entry) and ``wave.escaped``
+(live rays that missed).
+
 Differentiable under autograd: hit winners and sampled directions are
 detached; hit geometry, BSDF values and light terms stay attached, and so
 do the geometric factor and area pdf of the NEE estimator. Sampling pdfs
@@ -27,7 +37,7 @@ from offline_raytracer_tpu_torch.ops import bsdf as bsdf_ops
 from offline_raytracer_tpu_torch.ops import lights as light_ops
 from offline_raytracer_tpu_torch.ops.intersect import (
     closest_hit_bruteforce, hit_from_params, prefetch_hit_params)
-from offline_raytracer_tpu_torch.utils import rng
+from offline_raytracer_tpu_torch.utils import profiling, rng
 from offline_raytracer_tpu_torch.utils.math import normalize
 
 # where terminated lanes are parked: far outside any scene box, small
@@ -45,6 +55,13 @@ class PathState:
     prev_pdf: torch.Tensor    # (R,) BSDF pdf of the ray that made this
     #                           segment; -1 = camera ray (MIS weight 1)
     keys: torch.Tensor        # (R, 2) per-path keys
+
+
+def sky_radiance(sky, direction):
+    """(R, 3) radiance of ``scene.types.Sky`` seen along unit directions
+    (R, 3): (1 - a) bottom + a top, a = (d.up + 1) / 2."""
+    a = (0.5 * (torch.sum(direction * sky.up, -1) + 1.0))[..., None]
+    return (1.0 - a) * sky.bottom + a * sky.top
 
 
 def make_brute_trace_fn(scene, cfg):
@@ -139,20 +156,31 @@ def trace_paths(scene, cfg, trace_fn, origin, direction, ps_keys,
     do_mis = do_nee and cfg.enable_mis
 
     def bounce(state, bounce_idx, pre):
+        if profiling.enabled():
+            profiling.count("wave.lanes", state.alive.shape[0])
+            profiling.count("wave.live",
+                            state.alive.sum(dtype=torch.float32))
+        with profiling.span("wave.hit"):
+            if pre is None:
+                # finished lanes go to the query dead (t_far = 0), as the
+                # shadow query's do: their parked origin is no dead mark
+                hit = trace_fn(state.origin, state.direction, state.alive)
+            else:
+                hit = hit_from_params(pre["hp"], state.origin,
+                                      state.direction, cfg.t_min)
+        with profiling.span("wave.shade"):
+            return shade(state, bounce_idx, pre, hit)
+
+    def shade(state, bounce_idx, pre, hit):
         R_cur = state.alive.shape[0]     # replay tiers shrink the batch
         if pre is None:
             u8 = rng.bounce_uniforms(state.keys, bounce_idx, 8)
-            # finished lanes go to the query dead (t_far = 0), as the
-            # shadow query's do: their parked origin is no dead mark
-            hit = trace_fn(state.origin, state.direction, state.alive)
             mat_i = hit.mat.long()
             emit = mats.emit[mat_i]
             is_light = mats.is_light[mat_i]
             light_idx = scene.mat_to_light[mat_i]
         else:
             u8 = pre["u8"]
-            hit = hit_from_params(pre["hp"], state.origin, state.direction,
-                                  cfg.t_min)
             emit = pre["emit"]
             is_light = pre["is_light"]
             light_idx = pre["light_idx"]
@@ -187,6 +215,20 @@ def trace_paths(scene, cfg, trace_fn, origin, direction, ps_keys,
         radiance = state.radiance + torch.where(
             add_emit[..., None],
             state.throughput * emit * mis_w.detach()[..., None], 0.0)
+
+        # ---- the sky: a live ray that misses (a recorded id of -1 in the
+        # replay) reaches it; NEE never samples it, so its MIS weight is 1
+        escaped = None
+        if scene.sky is not None:
+            escaped = state.alive & ~hit.valid
+            radiance = radiance + torch.where(
+                escaped[..., None],
+                state.throughput * sky_radiance(scene.sky, state.direction),
+                0.0)
+        if profiling.enabled():
+            if escaped is None:
+                escaped = state.alive & ~hit.valid
+            profiling.count("wave.escaped", escaped.sum(dtype=torch.float32))
 
         alive = state.alive & hit.valid & ~hit_light
 
@@ -226,9 +268,12 @@ def trace_paths(scene, cfg, trace_fn, origin, direction, ps_keys,
             elif occl_fn is not None:
                 x_sh = torch.where(worth[..., None], x, PARK_ORIGIN)
                 tf = torch.where(worth, dist_l * (1.0 - 1e-3), 0.0)
-                visible = ~occl_fn(x_sh.detach(), wi_l.detach(), tf.detach())
+                with profiling.span("wave.occlusion"):
+                    visible = ~occl_fn(x_sh.detach(), wi_l.detach(),
+                                       tf.detach())
             else:
-                sh = trace_fn(x, wi_l)
+                with profiling.span("wave.occlusion"):
+                    sh = trace_fn(x, wi_l)
                 visible = sh.t >= dist_l * (1.0 - 1e-3)
             f_l = bsdf_ops.eval_bsdf(n, wi_l, wo, matp, seg_len)
             if do_mis:

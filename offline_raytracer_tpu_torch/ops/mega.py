@@ -93,8 +93,11 @@ def mega_ok(scene, cfg) -> bool:
     box, cylinder, material and light tables holds at most 128 entries.
     Triangles need the scene's BVH. There is no cap on the triangle count
     or leaf count: the kernel's walk is stackless and its trail of pending
-    levels holds any 32-bit tree's depth.
+    levels holds any 32-bit tree's depth. The kernel has no sky: a scene
+    with one takes the wavefront route.
     """
+    if scene.sky is not None:
+        return False
     if scene.materials.ior.shape[0] > LANE:
         return False
     if (scene.spheres.radius.shape[0] > LANE

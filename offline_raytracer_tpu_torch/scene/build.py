@@ -5,7 +5,9 @@ last declared" semantics, registers every emissive shape in the NEE light
 table, and ``build(device=...)`` freezes it all into the port's ``Scene``
 (on the card unless ``device="cpu"`` is passed).
 The tables, light table, camera and BVH equal what the JAX builder makes
-from the same calls (the tests hold them to it).
+from the same calls (the tests hold them to it). ``set_sky`` adds what the
+JAX package has no counterpart of: a gradient sky that rays reach on a
+miss (``scene.types.Sky``).
 """
 
 from __future__ import annotations
@@ -18,7 +20,8 @@ from offline_raytracer_tpu_torch.ops.camera import make_camera
 from offline_raytracer_tpu_torch.ops.lights import (
     KIND_CYLINDER, KIND_MESH, KIND_SPHERE, build_area_lights)
 from offline_raytracer_tpu_torch.scene.types import (
-    Boxes, Cylinders, Materials, Scene, Spheres, Triangles, scene_device)
+    Boxes, Cylinders, Materials, Scene, Sky, Spheres, Triangles,
+    scene_device)
 from offline_raytracer_tpu_torch.utils import profiling
 from offline_raytracer_tpu_torch.utils.math import rotation_matrix_to_z
 
@@ -54,6 +57,7 @@ class SceneBuilder:
         self._tri_m = []       # per-block materials
         self._lights = []      # AreaLights entries
         self.ambient = np.zeros(3, np.float32)
+        self.sky = None        # (bottom, top, up) float32 arrays
         self.camera_p = np.array([0.0, 0.0, 1.0], np.float32)
         self.camera_height_ratio = 0.5
         self.camera_quat = np.array([0.0, 0.0, 0.0, 1.0], np.float32)
@@ -146,6 +150,14 @@ class SceneBuilder:
         self.camera_height_ratio = float(height_ratio)
         self.camera_quat = np.asarray(quat_xyzw, np.float32)
 
+    # ---- sky -----------------------------------------------------------
+    def set_sky(self, bottom, top, up=(0.0, 0.0, 1.0)):
+        """A miss reaches (1 - a) bottom + a top, a = (d.up + 1) / 2."""
+        up = np.asarray(up, np.float64)
+        self.sky = (np.asarray(bottom, np.float32),
+                    np.asarray(top, np.float32),
+                    (up / np.linalg.norm(up)).astype(np.float32))
+
     # ---- build ---------------------------------------------------------
     @profiling.spanned("scene.build")
     def build(self, width=None, height=None, bvh_leaf_size: int = 128,
@@ -207,9 +219,12 @@ class SceneBuilder:
         if with_bvh and tv.shape[0] > 0:
             tri_bvh = build_tri_bvh(tv[:, 0], tv[:, 1], tv[:, 2], tm,
                                     leaf_size=bvh_leaf_size)
+        sky = None
+        if self.sky is not None:
+            sky = Sky(*(t(x.copy()) for x in self.sky))
         scene = Scene(
             materials=materials, spheres=spheres, boxes=boxes,
             cylinders=cylinders, triangles=triangles, lights=lights,
             camera=camera, ambient=t(self.ambient.copy()),
-            mat_to_light=t(mat_to_light), tri_bvh=tri_bvh)
+            mat_to_light=t(mat_to_light), tri_bvh=tri_bvh, sky=sky)
         return scene.to(device)

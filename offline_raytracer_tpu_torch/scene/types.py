@@ -122,6 +122,16 @@ class Camera(TensorTable):
 
 
 @dataclasses.dataclass(frozen=True)
+class Sky(TensorTable):
+    """The two-colour gradient a ray reaches when it leaves the scene: with
+    a = (d.up + 1) / 2 for the unit direction d, (1 - a) bottom + a top."""
+
+    bottom: torch.Tensor  # (3,)
+    top: torch.Tensor     # (3,)
+    up: torch.Tensor      # (3,) unit
+
+
+@dataclasses.dataclass(frozen=True)
 class Scene(TensorTable):
     materials: Materials
     spheres: Spheres
@@ -133,6 +143,7 @@ class Scene(TensorTable):
     ambient: torch.Tensor       # (3,)
     mat_to_light: torch.Tensor  # (M,) int32: light index or -1
     tri_bvh: object = None      # ops.bvh.TriBVH or None
+    sky: object = None          # Sky, or None: a miss adds nothing
 
     @property
     def n_lights(self) -> int:
