@@ -6,9 +6,9 @@
 Phases, each printing its own line; any failure exits non-zero:
 
 1. the card (``nvidia-smi`` name and power limit), torch and CUDA versions;
-2. build the four kernels (``csrc/mega.cu``, ``csrc/traverse_cull.cu``,
-   ``csrc/traverse_packet.cu``, ``csrc/threefry.cu``) from this checkout,
-   one nvcc each, at once;
+2. build the five kernels (``csrc/mega.cu``, ``csrc/traverse_cull.cu``,
+   ``csrc/traverse_packet.cu``, ``csrc/threefry.cu``,
+   ``csrc/sphere_sweep.cu``) from this checkout, one nvcc each, at once;
 3. hold the segment kernel against its plain PyTorch version on the exact
    segment inputs the main path produces: a 16,384-ray probe of the bunny
    stand-in (every 16th ray of the tile order, so it spans the whole image
@@ -90,7 +90,18 @@ Phases, each printing its own line; any failure exits non-zero:
    image within rtol 1e-4 / atol 1e-5 of the replicated cull render, each
    rank's BVH bytes on the card against the replicated tables'; then phase
    7's probe through the ring with ``traversal="packet"`` against the
-   replicated packet route. Each part prints its backend and wall seconds.
+   replicated packet route. Each part prints its backend and wall seconds;
+12. the wavefront route's sphere sweep (``csrc/sphere_sweep.cu``) on the
+   final scene of *Ray Tracing in One Weekend* (``portbench/configs/
+   rtiow_final.json``: 486 spheres, 1200x675): the closest-hit query of
+   bounce 10 of one sample of all 810,000 pixels is captured with its
+   alive mask, the sample's 11 bounces launching the kernel exactly 11
+   times, and the kernel, with the mask and over every lane, is held
+   against the plain ``sphere_ts(...).min(-1)`` over every lane: the same
+   winners and distances, bit for bit, on every lane it answers, a dead
+   lane a miss; each timed with CUDA events beside its bound
+   (the bytes of ``portbench/roofline_wave.hit_bound_ms`` and the pair
+   tests at the card's FP32 issue rate, whichever is larger).
 
 The line before the last is the kernels' JSON record (each kernel's
 launches on its route, its error and time against its plain version, its
@@ -98,8 +109,9 @@ bound on this card from the bytes and operations of the same inputs, and
 the library call that computes the same function: none does; for the two
 traversal kernels times and bounds are per sample, summed over its 16
 queries, with each query's beside them, and for the threefry kernel
-summed over a sample's 6 calls, with each call's beside them); the last
-line is
+summed over a sample's 6 calls, with each call's beside them, and for the
+sphere sweep the masked query of phase 12, with the every-lane one beside
+it); the last line is
 ``{"ok": true, "device": {...}}``. Without CUDA it exits 1 and prints no
 result.
 """
@@ -132,7 +144,8 @@ CLI_SPP = 8               # samples per pixel of the command line's renders
 CLI_EVERY = 4             # their checkpoint chunk
 PAR_SPP = 4               # samples per pixel of the sharded renders
 RING_SPP = 1              # and of the ring's render
-KERNELS = ("mega", "traverse_cull", "traverse_packet", "threefry")
+KERNELS = ("mega", "traverse_cull", "traverse_packet", "threefry",
+           "sphere_sweep")
 # the card's peaks (NVIDIA H100 SXM data sheet): device memory bytes/s and
 # float32 FLOP/s outside the tensor cores
 PEAK_BYTES = 3.35e12
@@ -150,6 +163,13 @@ SHADE_FLOP = 300
 # each of the card's 132 SMs at its 1.98 GHz boost clock
 THREEFRY_ALU_OPS = 40
 PEAK_ALU_OPS = 64 * 132 * 1.98e9
+# a ray-sphere test's float32 operations up to its discriminant's sign (3
+# subtractions, 7 products, 4 additions, 2 subtractions, a compare; the root
+# only where it is positive), none fusable: issued one a lane a clock on
+# the card's 128 FP32 lanes of each of 132 SMs at 1.98 GHz
+SPHERE_TEST_OPS = 17
+PEAK_FP32_ISSUE = 128 * 132 * 1.98e9
+SWEEP_BOUNCE = 10         # the bounce whose closest-hit query phase 12 takes
 
 
 def log(msg):
@@ -635,6 +655,139 @@ def threefry_phase(cfg, order, card):
             "replaces": None, "max_abs_err": 0.0, **sums,
             "bound_by": max(calls, key=lambda c: c["bound_ms"])["bound_by"],
             "library_ms": None, "calls": calls}
+
+
+def sweep_bound(lanes, spheres):
+    """(bound_ms, bound_by) of one sphere sweep over ``lanes`` lanes: the
+    bytes of ``portbench/roofline_wave.hit_bound_ms`` for one query, or
+    the lanes' pair tests at the card's FP32 issue rate."""
+    from portbench.roofline_wave import hit_bound_ms
+
+    by_bytes = hit_bound_ms(lanes, 1, spheres)
+    by_ops = lanes * spheres * SPHERE_TEST_OPS / PEAK_FP32_ISSUE * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops,
+                                                           "operations")
+
+
+def rtiow_scene(dev):
+    """(scene, cfg) of ``portbench/configs/rtiow_final.json`` on ``dev``."""
+    from offline_raytracer_tpu_torch import RenderConfig
+    from offline_raytracer_tpu_torch.scene.build import SceneBuilder
+    from portbench.inputs import recipe
+
+    with open(os.path.join(HERE, "portbench", "configs",
+                           "rtiow_final.json")) as f:
+        c = json.load(f)
+    b = recipe.apply(SceneBuilder(), recipe.calls(c["scene"]), c["camera"])
+    b.set_sky(**c["sky"])
+    cfg = RenderConfig(**c["render"])
+    return b.build(cfg.width, cfg.height, device=dev), cfg
+
+
+def sphere_sweep_phase(dev, card):
+    """Phase 12: the sphere sweep kernel against the plain sweep on bounce
+    ``SWEEP_BOUNCE``'s closest-hit query of a full-size sample of the final
+    scene. Returns the kernels record's entry."""
+    import torch
+    from offline_raytracer_tpu_torch.ops import intersect
+    from offline_raytracer_tpu_torch.ops.camera import generate_rays
+    from offline_raytracer_tpu_torch.render import _paths_fn, tile_pixel_ids
+    from offline_raytracer_tpu_torch.utils import rng
+
+    scene, cfg = rtiow_scene(dev)
+    cfg = cfg.replace(max_bounces=SWEEP_BOUNCE + 1)
+    sph = scene.spheres
+    N = sph.radius.shape[0]
+    ids = torch.from_numpy(tile_pixel_ids(cfg.width, cfg.height)).to(dev)
+    keys = rng.pixel_sample_keys(rng.render_key(cfg.seed, dev), ids,
+                                 torch.zeros_like(ids))
+    ro, rd = generate_rays(scene.camera, cfg, ids, keys)
+    seen = []
+    original = intersect.sphere_sweep
+
+    def recording(sph, ro, rd, t_min, alive=None):
+        if alive is not None:        # a closest-hit query, one a bounce
+            if len(seen) == SWEEP_BOUNCE:
+                seen.append((ro.clone(), rd.clone(), alive.clone()))
+            else:
+                seen.append(None)
+        return original(sph, ro, rd, t_min, alive)
+
+    intersect.sphere_sweep = recording
+    intersect.KERNEL_LAUNCHES = 0
+    try:
+        with torch.no_grad():
+            _paths_fn(scene, cfg)(ro, rd, keys)
+    finally:
+        intersect.sphere_sweep = original
+    torch.cuda.synchronize()
+    # one closest-hit query a bounce, each one launch; the scene has no
+    # light, so no shadow query
+    path_launches = intersect.KERNEL_LAUNCHES
+    if path_launches != SWEEP_BOUNCE + 1 or len(seen) != SWEEP_BOUNCE + 1:
+        fail(f"sphere sweep: {SWEEP_BOUNCE + 1} bounces launched the kernel "
+             f"{path_launches} times over {len(seen)} closest-hit queries, "
+             f"want {SWEEP_BOUNCE + 1} of each")
+    q_ro, q_rd, alive = seen[SWEEP_BOUNCE]
+    R = q_ro.shape[0]
+    live = int(alive.sum())
+    t_min = cfg.t_min
+
+    def plain():
+        return intersect.sphere_ts(sph, q_ro, q_rd, t_min).min(-1)
+
+    def masked():
+        return intersect.sphere_sweep_cuda(sph, q_ro, q_rd, t_min, alive)
+
+    def every():
+        return intersect.sphere_sweep_cuda(sph, q_ro, q_rd, t_min)
+
+    before = intersect.KERNEL_LAUNCHES
+    p_t, p_i = plain()
+    m_t, m_i = masked()
+    e_t, e_i = every()
+    torch.cuda.synchronize()
+    if intersect.KERNEL_LAUNCHES != before + 2:
+        fail(f"sphere sweep launches {intersect.KERNEL_LAUNCHES - before}, "
+             f"want 2")
+    p_i = p_i.to(torch.int32)
+    if not torch.equal(e_i, p_i):
+        fail(f"sphere sweep over every lane: {int((e_i != p_i).sum())} of "
+             f"{R} winners differ from the plain sweep's")
+    if not torch.equal(m_i[alive], p_i[alive]):
+        fail(f"sphere sweep, masked: "
+             f"{int((m_i[alive] != p_i[alive]).sum())} of {live} live "
+             f"winners differ from the plain sweep's")
+    if not (torch.isinf(m_t[~alive]).all() and (m_i[~alive] == 0).all()):
+        fail("sphere sweep, masked: a dead lane is not a miss")
+    # the distances too, bit for bit: ``closest_hit_bruteforce`` takes a
+    # hit from t < inf and weighs it against the other tables by t
+    t_differ = int((e_t.view(torch.int32) != p_t.view(torch.int32)).sum())
+    m_differ = int((m_t[alive].view(torch.int32)
+                    != p_t[alive].view(torch.int32)).sum())
+    if t_differ or m_differ:
+        fail(f"sphere sweep: distances differ bitwise from the plain "
+             f"sweep's on {t_differ} of {R} lanes over every lane and on "
+             f"{m_differ} of {live} live lanes masked")
+    hits = int(torch.isfinite(p_t[alive]).sum())
+    k_ms, e_ms, p_ms = time_ms(masked, 20), time_ms(every, 5), time_ms(plain,
+                                                                        2)
+    b_ms, b_by = sweep_bound(live, N)
+    e_b_ms, e_b_by = sweep_bound(R, N)
+    log(f"phase 12 sphere sweep: rtiow_final bounce {SWEEP_BOUNCE}, {R} rays "
+        f"x {N} spheres, {live} live ({100.0 * live / R:.3f}%), {hits} of "
+        f"them hit; {path_launches} launches over the {SWEEP_BOUNCE + 1} "
+        f"bounces; winners and distances bitwise the plain sweep's; "
+        f"masked kernel {k_ms:.4f} ms (bound {b_ms:.4f} ms, {b_by}), every "
+        f"lane {e_ms:.4f} ms (bound {e_b_ms:.4f} ms, {e_b_by}), plain "
+        f"{p_ms:.3f} ms [{card}]")
+    return {"name": "sphere_sweep", "route": "cuda",
+            "source": "offline_raytracer_tpu_torch/csrc/sphere_sweep.cu",
+            "replaces": None, "max_abs_err": 0.0, "launches": path_launches,
+            "t_differ": t_differ, "lanes": R, "live": live, "spheres": N,
+            "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "every_lane_ms": e_ms,
+            "every_lane_bound_ms": e_b_ms, "library_ms": None}
 
 
 def take_counts():
@@ -1315,6 +1468,7 @@ def main() -> int:
     grad_launches = gradient_phases(scene, cfg, order, card)
     cli_launches = cli_phase(dev, card)
     par = parallel_phase(scene, order, card)
+    sweep = sphere_sweep_phase(dev, card)
     wave[0]["ring_launches"] = par["cull"]
     wave[1]["ring_launches"] = par["packet"]
     record = {"kernels": [{
@@ -1328,7 +1482,7 @@ def main() -> int:
         "bound_ms": results[0]["bound_ms"],
         "bound_by": results[0]["bound_by"], "library_ms": None,
         "group": {x["b"]: x["group"] for x in segments},
-        "segments": segments}] + wave + [draws]}
+        "segments": segments}] + wave + [draws, sweep]}
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

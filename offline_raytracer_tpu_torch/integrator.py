@@ -66,10 +66,12 @@ def sky_radiance(sky, direction):
 
 def make_brute_trace_fn(scene, cfg):
     """Closest-hit function (ro, rd, alive=None) -> Hit by the brute-force
-    sweep, which answers every lane (``alive`` is the BVH query's dead
-    mark, ``traverse.make_bvh_trace_fn``)."""
+    sweep. ``alive`` (R,) bool marks the lanes whose hit is wanted: on the
+    card the sphere kernel answers the others as misses without testing
+    them (nothing downstream reads a dead lane's hit); the plain sweeps
+    answer every lane. The NEE shadow query passes no mask."""
     def trace(ro, rd, alive=None):
-        return closest_hit_bruteforce(scene, ro, rd, cfg.t_min)
+        return closest_hit_bruteforce(scene, ro, rd, cfg.t_min, alive=alive)
     return trace
 
 

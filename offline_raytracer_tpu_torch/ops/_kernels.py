@@ -13,7 +13,11 @@ and each kernel's instantiations for each group size round alike (bitwise
 equal outputs). The fourth library, ``threefry`` (``csrc/threefry.cu``),
 draws the counter-based uniforms and per-ray keys of ``utils/rng.py`` for
 CUDA tensors: 32-bit integer rounds and one exact product, so it needs no
-extra flag. ``build_all`` starts one nvcc per source at once.
+extra flag. The fifth, ``sphere_sweep`` (``csrc/sphere_sweep.cu``), is the
+wavefront route's closest-sphere search (``intersect.sphere_sweep``), built
+with ``-fmad=false`` as the ray kernels are, so each distance rounds as the
+plain ``sphere_ts``'s does. ``build_all`` starts one nvcc per source at
+once.
 """
 
 from __future__ import annotations
@@ -45,6 +49,7 @@ SIGNATURES = {
     "traverse_cull": ("traverse_cull", [_P] * 8 + [_I] * 5 + [_F, _P]),
     "traverse_packet": ("traverse_packet", [_P] * 8 + [_I] * 5 + [_F, _P]),
     "threefry": ("threefry_draw", [_I] + [_P] * 4 + [_I, _U, _I, _I, _P]),
+    "sphere_sweep": ("sphere_sweep", [_P] * 7 + [_I, _I, _F, _P]),
 }
 # flags a library adds to NVCC_FLAGS
 EXTRA_FLAGS = {
@@ -52,6 +57,7 @@ EXTRA_FLAGS = {
     "traverse_cull": ["-fmad=false"],
     "traverse_packet": ["-fmad=false"],
     "threefry": [],
+    "sphere_sweep": ["-fmad=false"],
 }
 
 _loaded: dict = {}

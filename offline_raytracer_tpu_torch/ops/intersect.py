@@ -7,6 +7,18 @@ search only) and the per-winner ``*_hit_one`` recomputes, which stay
 differentiable under autograd. A miss is t = +inf; normals are geometric
 and normalised once, in ``refine_hit`` and ``hit_from_params``.
 
+``sphere_sweep`` is the closest-sphere search of the wavefront route. It
+dispatches on the rays' device, as ``utils/rng.py`` does: CUDA tensors take
+the fifth kernel library, ``csrc/sphere_sweep.cu`` (one launch a query,
+counted in ``KERNEL_LAUNCHES``; built with ``-fmad=false`` and IEEE
+``sqrtf``, its sums in PyTorch's order on the card, so its distances are
+the plain sweep's on the card bit for bit), which skips
+the lanes its ``alive`` mask marks dead and answers them as misses; any
+other tensors take the plain ``sphere_ts(...).min(-1)`` over every lane.
+While the recorder is on (``utils/profiling``), the counters
+``intersect.kernel_sweeps`` and ``intersect.plain_sweeps`` add the lanes
+each route was handed.
+
 ``hit_from_ids``, ``prefetch_hit_params`` and ``hit_from_params`` serve the
 replay (path-replay backprop): they rebuild a hit, attached to the scene
 tensors, from a winner id in the segment kernel's MegaMeta encoding.
@@ -18,7 +30,13 @@ import dataclasses
 
 import torch
 
+from offline_raytracer_tpu_torch.utils import profiling
+
 INF = float("inf")
+
+# launches of the sphere sweep kernel; chip runs read it to prove the
+# wavefront's closest-hit queries went through the kernel
+KERNEL_LAUNCHES = 0
 
 # stable type ids for combining winners
 SPHERE, BOX, CYLINDER, TRIANGLE = 0, 1, 2, 3
@@ -59,6 +77,79 @@ def sphere_ts(sph, ro, rd, t_min):
     t = torch.where(tn >= t_min, tn, tp)
     ok = (disc > 0.0) & (t >= t_min)
     return torch.where(ok, t, INF)
+
+
+def sweep_inputs(sph, ro, rd, alive=None):
+    """The kernel's operands, (center, radius, ro, rd, alive), contiguous
+    (the camera's origins are one point expanded over the rays); raises
+    ValueError on a device, dtype or shape the kernel does not take, an
+    empty table, or sizes past its 32-bit indexing."""
+    dev = ro.device
+    R, N = ro.shape[0], sph.radius.shape[0]
+    named = [("center", sph.center, (N, 3), torch.float32),
+             ("radius", sph.radius, (N,), torch.float32),
+             ("ro", ro, (R, 3), torch.float32),
+             ("rd", rd, (R, 3), torch.float32)]
+    if alive is not None:
+        named.append(("alive", alive, (R,), torch.bool))
+    for name, x, shape, dtype in named:
+        if x.device != dev:
+            raise ValueError(f"sphere sweep: {name} is on {x.device}, the "
+                             f"rays on {dev}")
+        if tuple(x.shape) != shape or x.dtype != dtype:
+            raise ValueError(f"sphere sweep: {name} must be {shape} {dtype}, "
+                             f"got {tuple(x.shape)} {x.dtype}")
+    if N == 0:
+        raise ValueError("sphere sweep: the sphere table is empty")
+    if 3 * max(R, N) >= 2 ** 31:
+        raise ValueError(f"sphere sweep: {R} rays or {N} spheres are past "
+                         f"the kernel's 32-bit indexing")
+    out = [x.contiguous() for _, x, _, _ in named]
+    return tuple(out) + ((None,) if alive is None else ())
+
+
+def sphere_sweep_cuda(sph, ro, rd, t_min, alive=None):
+    """``sphere_sweep`` in one kernel launch (``csrc/sphere_sweep.cu``), on
+    CUDA tensors; a lane whose ``alive`` is False is a miss, untested."""
+    global KERNEL_LAUNCHES
+    if ro.device.type != "cuda":
+        raise ValueError(f"sphere_sweep_cuda needs CUDA tensors, got "
+                         f"{ro.device}")
+    center, radius, ro, rd, alive = sweep_inputs(sph, ro, rd, alive)
+    R = ro.shape[0]
+    t = torch.empty((R,), dtype=torch.float32, device=ro.device)
+    idx = torch.empty((R,), dtype=torch.int32, device=ro.device)
+    if R == 0:
+        return t, idx
+    from offline_raytracer_tpu_torch.ops import _kernels
+
+    fn = _kernels.load("sphere_sweep")
+    with torch.cuda.device(ro.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(ro.data_ptr(), rd.data_ptr(), center.data_ptr(),
+                 radius.data_ptr(),
+                 None if alive is None else alive.data_ptr(), t.data_ptr(),
+                 idx.data_ptr(), R, radius.shape[0], float(t_min), stream)
+    if err != 0:
+        raise RuntimeError(f"sphere sweep kernel launch failed: CUDA error "
+                           f"{err}")
+    KERNEL_LAUNCHES += 1
+    return t, idx
+
+
+def sphere_sweep(sph, ro, rd, t_min, alive=None):
+    """The closest sphere of each ray: (t (R,) float32, +inf on a miss;
+    index (R,) int32, the first of equals, 0 on a miss), as
+    ``sphere_ts(...).min(-1)``. CUDA rays take the kernel, which answers a
+    lane whose ``alive`` is False as a miss without testing it; any other
+    rays take the plain sweep over every lane (``alive`` unread). Counted
+    in ``intersect.kernel_sweeps`` or ``intersect.plain_sweeps``."""
+    if ro.device.type == "cuda":
+        profiling.count("intersect.kernel_sweeps", ro.shape[0])
+        return sphere_sweep_cuda(sph, ro, rd, t_min, alive)
+    profiling.count("intersect.plain_sweeps", ro.shape[0])
+    t, idx = sphere_ts(sph, ro, rd, t_min).min(-1)
+    return t, idx.to(torch.int32)
 
 
 def sphere_hit_one(center, radius, ro, rd, t_min):
@@ -239,15 +330,23 @@ class Closest:
         self.idx = torch.zeros((R,), dtype=torch.int32, device=device)
 
     def consider(self, t_all, type_id):
-        t_prim, i_prim = t_all.min(-1)
+        self.consider_min(*t_all.min(-1), type_id)
+
+    def consider_min(self, t_prim, i_prim, type_id):
+        """Take each ray's best of one table, (t, index) (R,), where it is
+        nearer than the winner so far."""
         better = t_prim < self.t
         self.t = torch.where(better, t_prim, self.t)
         self.type = torch.where(better, type_id, self.type).to(torch.int32)
         self.idx = torch.where(better, i_prim.to(torch.int32), self.idx)
 
-    def consider_analytic(self, scene, ro, rd, t_min):
+    def consider_analytic(self, scene, ro, rd, t_min, alive=None):
+        """Every analytic table: the spheres by ``sphere_sweep`` (``alive``:
+        the lanes whose hit is wanted, read by the kernel), boxes and
+        cylinders by their dense sweeps."""
         if scene.spheres.radius.shape[0]:
-            self.consider(sphere_ts(scene.spheres, ro, rd, t_min), SPHERE)
+            self.consider_min(*sphere_sweep(scene.spheres, ro, rd, t_min,
+                                            alive), SPHERE)
         if scene.boxes.mat.shape[0]:
             self.consider(box_ts(scene.boxes, ro, rd, t_min), BOX)
         if scene.cylinders.radius.shape[0]:
@@ -256,11 +355,14 @@ class Closest:
 
 
 def closest_hit_bruteforce(scene, ro, rd, t_min,
-                           include_triangles: bool = True) -> Hit:
-    """The closest hit over every primitive table, no BVH. ro, rd: (R, 3)."""
+                           include_triangles: bool = True,
+                           alive=None) -> Hit:
+    """The closest hit over every primitive table, no BVH. ro, rd: (R, 3);
+    ``alive`` (R,) bool: the lanes whose hit is wanted (the sphere kernel
+    answers the others as misses; ``Closest.consider_analytic``)."""
     with torch.no_grad():
         best = Closest(ro.shape[0], ro.device)
-        best.consider_analytic(scene, ro, rd, t_min)
+        best.consider_analytic(scene, ro, rd, t_min, alive)
         if include_triangles and scene.triangles.mat.shape[0]:
             best.consider(triangle_ts(scene.triangles, ro, rd, t_min),
                           TRIANGLE)

@@ -290,7 +290,8 @@ def make_bvh_trace_fn(scene, cfg, tables: TriTables | None = None):
     the analytic primitives, the BVH query for triangles, one
     differentiable ``refine_hit`` of the winner. ``alive`` (R,) bool: the
     lanes whose hit is wanted; the others go to the triangle query with
-    ``t_far = 0`` (dead) and cost it nothing."""
+    ``t_far = 0`` (dead) and to the sphere kernel as misses, and cost them
+    nothing."""
     bvh = scene.tri_bvh
     if bvh is None:
         raise ValueError("scene has no tri_bvh; build it with with_bvh=True")
@@ -300,7 +301,7 @@ def make_bvh_trace_fn(scene, cfg, tables: TriTables | None = None):
     def trace(ro, rd, alive=None):
         with torch.no_grad():
             best = I.Closest(ro.shape[0], ro.device)
-            best.consider_analytic(scene, ro, rd, cfg.t_min)
+            best.consider_analytic(scene, ro, rd, cfg.t_min, alive)
             tf = None if alive is None else torch.where(alive, INF, 0.0)
             tt, slot = sorted_tri_hit(tables, tri_hit, cfg, ro, rd, tf)
             tri_id = torch.where(

@@ -147,13 +147,13 @@ def make_ring_trace_fn(scene: Scene, cfg: RenderConfig, tables: TriTables,
     rank of the ring: dense sweeps of the analytic primitives, the ring of
     triangle queries, one differentiable ``refine_hit`` of the winner.
     ``alive``: the lanes whose hit is wanted; the others go to every shard
-    dead."""
+    and to the sphere kernel dead."""
     tri_hit = pick_tri_hit(tables, cfg)
 
     def trace(ro, rd, alive=None):
         with torch.no_grad():
             best = I.Closest(ro.shape[0], ro.device)
-            best.consider_analytic(scene, ro, rd, cfg.t_min)
+            best.consider_analytic(scene, ro, rd, cfg.t_min, alive)
             t_far = (torch.full_like(best.t, INF) if alive is None
                      else torch.where(alive, INF, 0.0))
             tt, tri_id = _ring_tri_hit(tables, tri_hit, cfg, group, ro, rd,
