@@ -9,8 +9,9 @@ beside it: the fused bounce segment (``ops/mega.py``, ``csrc/mega.cu``),
 and the cull-and-sweep and packet-walk triangle queries of the wavefront
 route (``ops/traverse_cull.py``, ``ops/traverse_packet.py``,
 ``csrc/traverse_*.cu``). Tensors on a CUDA device go through the kernels,
-tensors on the CPU through the plain versions; there is no fallback
-between the two.
+tensors on the CPU through the plain versions, and any other device is
+refused (``ops/_kernels.takes_kernel``); there is no fallback between the
+two.
 
 This package imports neither jax nor the JAX package: the tests hold it to
 the JAX package by running the same inputs through both.

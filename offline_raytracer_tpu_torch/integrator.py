@@ -77,49 +77,69 @@ def make_brute_trace_fn(scene, cfg):
 
 
 
-def _at(tree, i):
-    """Index ``i`` of the leading axis of every tensor in a nest of dicts
-    and dataclasses."""
+def _map(fn, tree):
+    """``fn`` applied to every tensor in a nest of dicts and dataclasses."""
     if isinstance(tree, dict):
-        return {k: _at(v, i) for k, v in tree.items()}
+        return {k: _map(fn, v) for k, v in tree.items()}
     if dataclasses.is_dataclass(tree):
         return dataclasses.replace(tree, **{
-            f.name: _at(getattr(tree, f.name), i)
+            f.name: _map(fn, getattr(tree, f.name))
             for f in dataclasses.fields(tree)})
-    return tree[i]
+    return fn(tree)
+
+
+def _at(tree, i):
+    """Index ``i`` of the leading axis of every tensor in a nest."""
+    return _map(lambda x: x[i], tree)
+
+
+def surface_record(scene, cfg, u8, mat):
+    """What the shading reads of the surfaces a bounce hit, the same for
+    the forward route and the replay: the bounce's uniforms ``u8`` (...,
+    8) and every gather by the hits' materials ``mat`` (...) int, 0 on a
+    miss: ``matp``, ``emit``, ``is_light``, ``light_idx`` and, where NEE
+    and MIS want them, ``pdf_area_hit`` (NEE's area pdf of the light hit)
+    and ``ls`` (the NEE light sample), each with ``mat``'s shape in front.
+    A dead lane's entries only need to be finite: every use of them is
+    alive-masked."""
+    mats = scene.materials
+    do_nee = cfg.enable_nee and scene.n_lights > 0
+    m = mat.long()
+    rec = {
+        "u8": u8,
+        "matp": bsdf_ops.gather_mat_params(
+            mats, m, cfg.default_roughness, cfg.roughness_from_material),
+        "emit": mats.emit[m], "is_light": mats.is_light[m],
+        "light_idx": scene.mat_to_light[m],
+    }
+    if do_nee and cfg.enable_mis:
+        rec["pdf_area_hit"] = light_ops.light_pdf_area(scene.lights,
+                                                       rec["light_idx"])
+    if do_nee:
+        lead = m.shape
+        u4 = u8[..., 0:4]
+        if len(lead) > 1:       # sample_lights takes (R, 4)
+            u4 = u4.reshape(-1, 4)
+        ls = light_ops.sample_lights(u4, scene.lights, mats.emit)
+        if len(lead) > 1:
+            ls = _map(lambda x: x.reshape(lead + x.shape[1:]), ls)
+        rec["ls"] = ls
+    return rec
 
 
 def _replay_tables(scene, cfg, ids, vis, keys, b_lo):
-    """The replay's id-dependent gathers and draws for bounces [b_lo, b_lo
-    + nb) of the current (possibly compacted) rays, built once per
-    segment so the gathers, and the scatter-adds of their backward that
-    carry the parameter gradients, are sized to the segment's width.
-    ids, vis: (nb, S). Every tensor has (nb, S) in front."""
-    mats = scene.materials
-    do_nee = cfg.enable_nee and scene.n_lights > 0
-    nb, S = ids.shape
+    """The replay's records for bounces [b_lo, b_lo + nb) of the current
+    (possibly compacted) rays, built once per segment so the gathers, and
+    the scatter-adds of their backward that carry the parameter gradients,
+    are sized to the segment's width: the winners' geometry ``hp``, the
+    ``surface_record`` ``surf`` and the NEE visibility ``vis``. ids, vis:
+    (nb, S). Every tensor has (nb, S) in front."""
+    nb = ids.shape[0]
     hp = prefetch_hit_params(scene, ids)
     u8 = torch.stack([rng.bounce_uniforms(keys, b_lo + i, 8)
                       for i in range(nb)])
-    mat = hp["mat"].long()
-    pre = {
-        "hp": hp, "u8": u8, "vis": vis,
-        "matp": bsdf_ops.gather_mat_params(
-            mats, mat, cfg.default_roughness, cfg.roughness_from_material),
-        "emit": mats.emit[mat], "is_light": mats.is_light[mat],
-        "light_idx": scene.mat_to_light[mat],
-    }
-    if do_nee and cfg.enable_mis:
-        pre["pdf_area_hit"] = light_ops.light_pdf_area(scene.lights,
-                                                       pre["light_idx"])
-    if do_nee:
-        ls = light_ops.sample_lights(u8[..., 0:4].reshape(nb * S, 4),
-                                     scene.lights, mats.emit)
-        pre["ls"] = dataclasses.replace(ls, **{
-            f.name: getattr(ls, f.name).reshape(
-                (nb, S) + getattr(ls, f.name).shape[1:])
-            for f in dataclasses.fields(ls)})
-    return pre
+    return {"hp": hp, "surf": surface_record(scene, cfg, u8, hp["mat"]),
+            "vis": vis}
 
 
 def trace_paths(scene, cfg, trace_fn, origin, direction, ps_keys,
@@ -153,45 +173,67 @@ def trace_paths(scene, cfg, trace_fn, origin, direction, ps_keys,
         alive=torch.ones((R,), dtype=torch.bool, device=dev),
         prev_pdf=torch.full((R,), -1.0, **f32), keys=ps_keys)
 
-    mats = scene.materials
     do_nee = cfg.enable_nee and scene.n_lights > 0
     do_mis = do_nee and cfg.enable_mis
 
-    def bounce(state, bounce_idx, pre):
+    # where a bounce's hit, surface record and NEE visibility come from:
+    # the forward route queries and draws; the replay reads ``rec``, its
+    # records of the bounce being shaded, which the replay loop sets
+    if replay is None:
+        def hit_of(state):
+            # finished lanes go to the query dead (t_far = 0), as the
+            # shadow query's do: their parked origin is no dead mark
+            return trace_fn(state.origin, state.direction, state.alive)
+
+        def surface_of(state, b, hit):
+            return surface_record(
+                scene, cfg, rng.bounce_uniforms(state.keys, b, 8), hit.mat)
+
+        if occl_fn is not None:
+            def visible_of(x, wi_l, dist_l, worth):
+                # dead lanes launch with t_far = 0 and cost nothing
+                x_sh = torch.where(worth[..., None], x, PARK_ORIGIN)
+                tf = torch.where(worth, dist_l * (1.0 - 1e-3), 0.0)
+                with profiling.span("wave.occlusion"):
+                    return ~occl_fn(x_sh.detach(), wi_l.detach(),
+                                    tf.detach())
+        else:
+            def visible_of(x, wi_l, dist_l, worth):
+                with profiling.span("wave.occlusion"):
+                    sh = trace_fn(x, wi_l)
+                return sh.t >= dist_l * (1.0 - 1e-3)
+    else:
+        def hit_of(state):
+            return hit_from_params(rec["hp"], state.origin, state.direction,
+                                   cfg.t_min)
+
+        def surface_of(state, b, hit):
+            return rec["surf"]
+
+        def visible_of(x, wi_l, dist_l, worth):
+            return rec["vis"] > 0.5
+
+    def bounce(state, bounce_idx):
         if profiling.enabled():
             profiling.count("wave.lanes", state.alive.shape[0])
             profiling.count("wave.live",
                             state.alive.sum(dtype=torch.float32))
         with profiling.span("wave.hit"):
-            if pre is None:
-                # finished lanes go to the query dead (t_far = 0), as the
-                # shadow query's do: their parked origin is no dead mark
-                hit = trace_fn(state.origin, state.direction, state.alive)
-            else:
-                hit = hit_from_params(pre["hp"], state.origin,
-                                      state.direction, cfg.t_min)
+            hit = hit_of(state)
         with profiling.span("wave.shade"):
-            return shade(state, bounce_idx, pre, hit)
+            return shade(state, bounce_idx, hit,
+                         surface_of(state, bounce_idx, hit))
 
-    def shade(state, bounce_idx, pre, hit):
+    def shade(state, bounce_idx, hit, surf):
         R_cur = state.alive.shape[0]     # replay tiers shrink the batch
-        if pre is None:
-            u8 = rng.bounce_uniforms(state.keys, bounce_idx, 8)
-            mat_i = hit.mat.long()
-            emit = mats.emit[mat_i]
-            is_light = mats.is_light[mat_i]
-            light_idx = scene.mat_to_light[mat_i]
-        else:
-            u8 = pre["u8"]
-            emit = pre["emit"]
-            is_light = pre["is_light"]
-            light_idx = pre["light_idx"]
-        hit_light = is_light & hit.valid
+        u8 = surf["u8"]
+        emit = surf["emit"]
+        light_idx = surf["light_idx"]
+        hit_light = surf["is_light"] & hit.valid
 
         # ---- emission (implicit light connection)
         if do_mis:
-            pdf_area = (light_ops.light_pdf_area(scene.lights, light_idx)
-                        if pre is None else pre["pdf_area_hit"])
+            pdf_area = surf["pdf_area_hit"]
             cos_l = torch.sum(hit.normal * (-state.direction), -1)
             p_nee = light_ops.solid_angle_pdf(pdf_area, hit.t, cos_l)
             mis_applies = (light_idx >= 0) & (state.prev_pdf >= 0.0)
@@ -241,42 +283,21 @@ def trace_paths(scene, cfg, trace_fn, origin, direction, ps_keys,
         x = torch.where(alive[..., None], x, state.origin)
         wo = -state.direction
         n = hit.normal
-        if pre is None:
-            matp = bsdf_ops.gather_mat_params(
-                mats, torch.where(alive, hit.mat, 0), cfg.default_roughness,
-                cfg.roughness_from_material)
-        else:
-            # gathered by the recorded material (0 on a miss); dead lanes'
-            # values only need to be finite, every use is alive-masked
-            matp = pre["matp"]
+        matp = surf["matp"]
         seg_len = torch.where(hit.valid, hit.t, 0.0)
 
         # ---- next-event estimation
         if do_nee:
-            ls = (light_ops.sample_lights(u8[:, 0:4], scene.lights,
-                                          mats.emit)
-                  if pre is None else pre["ls"])
+            ls = surf["ls"]
             to_l = ls.p - x
             dist_l = torch.sqrt(torch.sum(to_l * to_l, -1))
             wi_l = to_l / torch.clamp(dist_l, min=1e-9)[..., None]
             cos_l = torch.sum(ls.normal * (-wi_l), -1)
             p_nee_solid = light_ops.solid_angle_pdf(ls.pdf_area, dist_l,
                                                     cos_l)
-            # shadow query with the light distance as the bound; dead
-            # lanes launch with t_far = 0 and cost nothing
+            # shadow query with the light distance as the bound
             worth = alive & (cos_l > 1e-6)
-            if pre is not None:
-                visible = pre["vis"] > 0.5
-            elif occl_fn is not None:
-                x_sh = torch.where(worth[..., None], x, PARK_ORIGIN)
-                tf = torch.where(worth, dist_l * (1.0 - 1e-3), 0.0)
-                with profiling.span("wave.occlusion"):
-                    visible = ~occl_fn(x_sh.detach(), wi_l.detach(),
-                                       tf.detach())
-            else:
-                with profiling.span("wave.occlusion"):
-                    sh = trace_fn(x, wi_l)
-                visible = sh.t >= dist_l * (1.0 - 1e-3)
+            visible = visible_of(x, wi_l, dist_l, worth)
             f_l = bsdf_ops.eval_bsdf(n, wi_l, wo, matp, seg_len)
             if do_mis:
                 p_b = bsdf_ops.pdf_bsdf(n, wi_l, wo, matp)
@@ -326,7 +347,7 @@ def trace_paths(scene, cfg, trace_fn, origin, direction, ps_keys,
     counts = []
     if replay is None:
         for b in range(cfg.max_bounces):
-            state = bounce(state, b, None)
+            state = bounce(state, b)
             counts.append(state.alive.sum(dtype=torch.float32))
         if collect_stats:
             return state.radiance, torch.stack(counts)
@@ -365,7 +386,8 @@ def trace_paths(scene, cfg, trace_fn, origin, direction, ps_keys,
             ids_seg, vis_seg = ids_all[b0:b1], vis_all[b0:b1]
         pre = _replay_tables(scene, cfg, ids_seg, vis_seg, state.keys, b0)
         for b in range(b0, b1):
-            state = bounce(state, b, _at(pre, b - b0))
+            rec = _at(pre, b - b0)
+            state = bounce(state, b)
             counts.append(state.alive.sum(dtype=torch.float32))
     radiance = state.radiance
     if tiered:

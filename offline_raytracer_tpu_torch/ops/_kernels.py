@@ -1,23 +1,21 @@
-"""Build and load the port's CUDA kernels (``csrc/*.cu``) at first use.
+"""Build, load and launch the port's CUDA kernels (``csrc/*.cu``).
 
-Each source is compiled by ``nvcc`` for Hopper (``sm_90a``) into a shared
-library with a plain C entry point, cached under ``build/kernels/`` at the
-repository root keyed on a hash of the source, the headers beside it
-(``csrc/*.cuh``) and the flags, and loaded with ctypes. No fast-math
-flags: the kernels rely on IEEE division, on ``inf`` from ``1/0`` in slab
-tests and on exact ``sqrtf``. The three ray kernels (``mega``,
-``traverse_cull``, ``traverse_packet``) are also built with
-``-fmad=false``: no a*b+c is contracted to an FMA, so the traversal
-kernels' triangle test rounds exactly as the plain PyTorch version's does,
-and each kernel's instantiations for each group size round alike (bitwise
-equal outputs). The fourth library, ``threefry`` (``csrc/threefry.cu``),
-draws the counter-based uniforms and per-ray keys of ``utils/rng.py`` for
-CUDA tensors: 32-bit integer rounds and one exact product, so it needs no
-extra flag. The fifth, ``sphere_sweep`` (``csrc/sphere_sweep.cu``), is the
-wavefront route's closest-sphere search (``intersect.sphere_sweep``), built
-with ``-fmad=false`` as the ray kernels are, so each distance rounds as the
-plain ``sphere_ts``'s does. ``build_all`` starts one nvcc per source at
-once.
+Each source is compiled by ``nvcc`` for Hopper (``sm_90a``) at first use
+into a shared library with a plain C entry point, cached under
+``build/kernels/`` at the repository root keyed on a hash of the source,
+the headers beside it (``csrc/*.cuh``) and the flags, and loaded with
+ctypes. ``LIBRARIES`` names each library's entry point, its argument types
+and the flags it adds. No fast-math flags: the kernels rely on IEEE
+division, on ``inf`` from ``1/0`` in slab tests and on exact ``sqrtf``.
+The ray and sphere kernels are also built with ``-fmad=false``: no a*b+c
+is contracted to an FMA, so their triangle and sphere tests round exactly
+as the plain PyTorch versions' do, and each kernel's instantiations for
+each group size round alike (bitwise equal outputs). ``build_all`` starts
+one nvcc per source at once.
+
+``takes_kernel`` is the port's one device rule and ``launch`` its one way
+onto the card: every entry point takes the current stream as its last
+argument and returns a CUDA error code.
 """
 
 from __future__ import annotations
@@ -32,6 +30,8 @@ import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 
+import torch
+
 from offline_raytracer_tpu_torch.utils import profiling
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -42,22 +42,18 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
-# argument types of each kernel library's C entry point
-SIGNATURES = {
-    "mega": ("mega_segment",
-             [_P] * 10 + [_I] * 16 + [_F] * 3 + [_P]),
-    "traverse_cull": ("traverse_cull", [_P] * 8 + [_I] * 5 + [_F, _P]),
-    "traverse_packet": ("traverse_packet", [_P] * 8 + [_I] * 5 + [_F, _P]),
-    "threefry": ("threefry_draw", [_I] + [_P] * 4 + [_I, _U, _I, _I, _P]),
-    "sphere_sweep": ("sphere_sweep", [_P] * 7 + [_I, _I, _F, _P]),
-}
-# flags a library adds to NVCC_FLAGS
-EXTRA_FLAGS = {
-    "mega": ["-fmad=false"],
-    "traverse_cull": ["-fmad=false"],
-    "traverse_packet": ["-fmad=false"],
-    "threefry": [],
-    "sphere_sweep": ["-fmad=false"],
+_EXACT = ["-fmad=false"]
+# library -> (C entry point, its argument types, flags added to NVCC_FLAGS)
+LIBRARIES = {
+    "mega": ("mega_segment", [_P] * 10 + [_I] * 16 + [_F] * 3 + [_P],
+             _EXACT),
+    "traverse_cull": ("traverse_cull", [_P] * 8 + [_I] * 5 + [_F, _P],
+                      _EXACT),
+    "traverse_packet": ("traverse_packet", [_P] * 8 + [_I] * 5 + [_F, _P],
+                        _EXACT),
+    "threefry": ("threefry_draw", [_I] + [_P] * 4 + [_I, _U, _I, _I, _P],
+                 []),
+    "sphere_sweep": ("sphere_sweep", [_P] * 7 + [_I, _I, _F, _P], _EXACT),
 }
 
 _loaded: dict = {}
@@ -80,7 +76,7 @@ def build(name: str) -> dict:
     Returns {"path", "seconds", "log", "cached"}; raises on a failed build.
     """
     src = os.path.join(SRC_DIR, f"{name}.cu")
-    flags = NVCC_FLAGS + EXTRA_FLAGS.get(name, [])
+    flags = NVCC_FLAGS + LIBRARIES[name][2]
     digest = hashlib.sha256(" ".join(flags).encode())
     for path in [src] + sorted(glob.glob(os.path.join(SRC_DIR, "*.cuh"))):
         with open(path, "rb") as f:
@@ -121,10 +117,32 @@ def load(name: str):
     fn = _loaded.get(name)
     if fn is None:
         with profiling.span("kernels.load"):
-            entry, argtypes = SIGNATURES[name]
+            entry, argtypes, _ = LIBRARIES[name]
             lib = ctypes.CDLL(build(name)["path"])
             fn = getattr(lib, entry)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
             _loaded[name] = fn
     return fn
+
+
+def launch(name: str, device, *args) -> None:
+    """One launch of library ``name``'s entry point with ``args`` on
+    ``device``'s current stream, whose handle it appends; no sync. Raises
+    RuntimeError on a non-zero return."""
+    fn = load(name)
+    with torch.cuda.device(device):
+        err = fn(*args, torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+
+
+def takes_kernel(device: torch.device, what: str) -> bool:
+    """The port's device rule: True for a CUDA device (take the kernel),
+    False for the CPU (take the plain version); any other device raises
+    ValueError naming ``what`` and the device."""
+    if device.type == "cuda":
+        return True
+    if device.type == "cpu":
+        return False
+    raise ValueError(f"no {what} for device {device}")

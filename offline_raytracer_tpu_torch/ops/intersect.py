@@ -8,16 +8,13 @@ differentiable under autograd. A miss is t = +inf; normals are geometric
 and normalised once, in ``refine_hit`` and ``hit_from_params``.
 
 ``sphere_sweep`` is the closest-sphere search of the wavefront route. It
-dispatches on the rays' device, as ``utils/rng.py`` does: CUDA tensors take
-the fifth kernel library, ``csrc/sphere_sweep.cu`` (one launch a query,
+follows the port's device rule (``ops/_kernels.takes_kernel``): CUDA
+tensors take the kernel ``csrc/sphere_sweep.cu`` (one launch a query,
 counted in ``KERNEL_LAUNCHES``; built with ``-fmad=false`` and IEEE
 ``sqrtf``, its sums in PyTorch's order on the card, so its distances are
-the plain sweep's on the card bit for bit), which skips
-the lanes its ``alive`` mask marks dead and answers them as misses; any
-other tensors take the plain ``sphere_ts(...).min(-1)`` over every lane.
-While the recorder is on (``utils/profiling``), the counters
-``intersect.kernel_sweeps`` and ``intersect.plain_sweeps`` add the lanes
-each route was handed.
+the plain sweep's on the card bit for bit), which skips the lanes its
+``alive`` mask marks dead and answers them as misses; CPU tensors take the
+plain ``sphere_ts(...).min(-1)`` over every lane.
 
 ``hit_from_ids``, ``prefetch_hit_params`` and ``hit_from_params`` serve the
 replay (path-replay backprop): they rebuild a hit, attached to the scene
@@ -30,7 +27,7 @@ import dataclasses
 
 import torch
 
-from offline_raytracer_tpu_torch.utils import profiling
+from offline_raytracer_tpu_torch.ops import _kernels
 
 INF = float("inf")
 
@@ -121,18 +118,11 @@ def sphere_sweep_cuda(sph, ro, rd, t_min, alive=None):
     idx = torch.empty((R,), dtype=torch.int32, device=ro.device)
     if R == 0:
         return t, idx
-    from offline_raytracer_tpu_torch.ops import _kernels
-
-    fn = _kernels.load("sphere_sweep")
-    with torch.cuda.device(ro.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(ro.data_ptr(), rd.data_ptr(), center.data_ptr(),
-                 radius.data_ptr(),
-                 None if alive is None else alive.data_ptr(), t.data_ptr(),
-                 idx.data_ptr(), R, radius.shape[0], float(t_min), stream)
-    if err != 0:
-        raise RuntimeError(f"sphere sweep kernel launch failed: CUDA error "
-                           f"{err}")
+    _kernels.launch("sphere_sweep", ro.device, ro.data_ptr(), rd.data_ptr(),
+                    center.data_ptr(), radius.data_ptr(),
+                    None if alive is None else alive.data_ptr(),
+                    t.data_ptr(), idx.data_ptr(), R, radius.shape[0],
+                    float(t_min))
     KERNEL_LAUNCHES += 1
     return t, idx
 
@@ -141,13 +131,10 @@ def sphere_sweep(sph, ro, rd, t_min, alive=None):
     """The closest sphere of each ray: (t (R,) float32, +inf on a miss;
     index (R,) int32, the first of equals, 0 on a miss), as
     ``sphere_ts(...).min(-1)``. CUDA rays take the kernel, which answers a
-    lane whose ``alive`` is False as a miss without testing it; any other
-    rays take the plain sweep over every lane (``alive`` unread). Counted
-    in ``intersect.kernel_sweeps`` or ``intersect.plain_sweeps``."""
-    if ro.device.type == "cuda":
-        profiling.count("intersect.kernel_sweeps", ro.shape[0])
+    lane whose ``alive`` is False as a miss without testing it; CPU rays
+    take the plain sweep over every lane (``alive`` unread)."""
+    if _kernels.takes_kernel(ro.device, "sphere sweep"):
         return sphere_sweep_cuda(sph, ro, rd, t_min, alive)
-    profiling.count("intersect.plain_sweeps", ro.shape[0])
     t, idx = sphere_ts(sph, ro, rd, t_min).min(-1)
     return t, idx.to(torch.int32)
 

@@ -16,7 +16,8 @@ Two implementations share one contract:
   the JAX kernel with a dense, chunked triangle sweep in place of the walk.
 
 ``mega_segment`` takes the kernel for CUDA tensors and the plain version
-for CPU tensors; there is no fallback from one to the other.
+for CPU tensors (``ops/_kernels.takes_kernel``); there is no fallback from
+one to the other.
 ``render_paths_mega`` is the host loop around the segments: padding and
 parking, the segment plan, the per-bounce uniform and light-sample planes,
 the coherence sort between early bounces with its incremental inverse
@@ -37,6 +38,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from offline_raytracer_tpu_torch.ops import _kernels
 from offline_raytracer_tpu_torch.ops.bvh import SUB
 from offline_raytracer_tpu_torch.ops.lights import sample_lights
 from offline_raytracer_tpu_torch.ops.traverse import leaf_major, tri_tables
@@ -861,8 +863,6 @@ def mega_segment_cuda(state, u, ls, tables: MegaTables, seg: Segment,
     (default ``group_size(seg, Rp)``); it changes no output. Launches on
     the current stream, no sync."""
     global KERNEL_LAUNCHES
-    from offline_raytracer_tpu_torch.ops import _kernels
-
     if state.device.type != "cuda":
         raise ValueError(f"mega_segment_cuda needs CUDA tensors, got "
                          f"{state.device}")
@@ -872,26 +872,20 @@ def mega_segment_cuda(state, u, ls, tables: MegaTables, seg: Segment,
         group = group_size(seg, Rp)
     if group not in GROUPS:
         raise ValueError(f"group {group} not in {GROUPS}")
-    fn = _kernels.load("mega")
     nf = seg.n_fused
     meta = tables.meta
     state_out = torch.empty_like(state)
     rad = torch.empty((3 + 3 * nf, Rp), dtype=torch.float32,
                       device=state.device)
-    with torch.cuda.device(state.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(state.data_ptr(), u.data_ptr(), ls.data_ptr(),
-                 tables.consts.data_ptr(), tables.tri_lm.data_ptr(),
-                 tables.sub.data_ptr(),
-                 tables.tri_mat.data_ptr(), tables.nodes.data_ptr(),
-                 state_out.data_ptr(), rad.data_ptr(),
-                 Rp, nf, seg.b_start, seg.rr_start, tables.n_leaves,
-                 tables.m_occ, int(tables.m_occ > 0), meta.ns, meta.nb,
-                 meta.nc, meta.nl, int(seg.do_nee), int(seg.do_mis),
-                 int(seg.rr_quirk), meta.cols, group, seg.t_min,
-                 seg.hit_eps, seg.rr_p, stream)
-    if err != 0:
-        raise RuntimeError(f"mega kernel launch failed: CUDA error {err}")
+    _kernels.launch(
+        "mega", state.device, state.data_ptr(), u.data_ptr(), ls.data_ptr(),
+        tables.consts.data_ptr(), tables.tri_lm.data_ptr(),
+        tables.sub.data_ptr(), tables.tri_mat.data_ptr(),
+        tables.nodes.data_ptr(), state_out.data_ptr(), rad.data_ptr(), Rp,
+        nf, seg.b_start, seg.rr_start, tables.n_leaves, tables.m_occ,
+        int(tables.m_occ > 0), meta.ns, meta.nb, meta.nc, meta.nl,
+        int(seg.do_nee), int(seg.do_mis), int(seg.rr_quirk), meta.cols,
+        group, seg.t_min, seg.hit_eps, seg.rr_p)
     KERNEL_LAUNCHES += 1
     return state_out, rad
 
@@ -899,11 +893,9 @@ def mega_segment_cuda(state, u, ls, tables: MegaTables, seg: Segment,
 def mega_segment(state, u, ls, tables: MegaTables, seg: Segment):
     """One segment: the kernel for CUDA tensors, the plain version for CPU
     tensors, an error for anything else."""
-    if state.device.type == "cuda":
+    if _kernels.takes_kernel(state.device, "segment implementation"):
         return mega_segment_cuda(state, u, ls, tables, seg)
-    if state.device.type == "cpu":
-        return mega_segment_plain(state, u, ls, tables, seg)
-    raise ValueError(f"no segment implementation for device {state.device}")
+    return mega_segment_plain(state, u, ls, tables, seg)
 
 
 # ---------------------------------------------------------------------------
@@ -964,8 +956,6 @@ def render_paths_mega(scene, cfg, ro, rd, keys, collect_stats=False,
         raise ValueError(
             f"scene exceeds the segment kernel's tables: {ROUTE_NOTE}")
     dev = ro.device
-    if dev.type not in ("cuda", "cpu"):
-        raise ValueError(f"no segment implementation for device {dev}")
     if tables is None:
         tables = prepare_tables(scene, cfg)
     meta = tables.meta

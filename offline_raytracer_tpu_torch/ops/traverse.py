@@ -40,6 +40,7 @@ import dataclasses
 
 import torch
 
+from offline_raytracer_tpu_torch.ops import _kernels
 from offline_raytracer_tpu_torch.ops import intersect as I
 from offline_raytracer_tpu_torch.ops.bvh import LEAF
 
@@ -203,22 +204,15 @@ def launch_query(name: str, ro, rd, t_min, t_far, any_hit: bool,
     table pointers, t out, slot out, R, two ints, any_hit, group, t_min,
     stream). -> (t (R,), slot (R,)): t is inf on a miss and t_min on an
     any hit, slot -1 on a miss."""
-    from offline_raytracer_tpu_torch.ops import _kernels
-
     if group not in GROUPS:
         raise ValueError(f"group {group} not in {GROUPS}")
-    fn = _kernels.load(name)
     R = ro.shape[0]
     t = torch.empty((R,), dtype=torch.float32, device=ro.device)
     slot = torch.empty((R,), dtype=torch.int32, device=ro.device)
-    with torch.cuda.device(ro.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(ro.data_ptr(), rd.data_ptr(),
-                 None if t_far is None else t_far.data_ptr(), *table_ptrs,
-                 t.data_ptr(), slot.data_ptr(), R, *ints, int(any_hit),
-                 group, float(t_min), stream)
-    if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+    _kernels.launch(name, ro.device, ro.data_ptr(), rd.data_ptr(),
+                    None if t_far is None else t_far.data_ptr(),
+                    *table_ptrs, t.data_ptr(), slot.data_ptr(), R, *ints,
+                    int(any_hit), group, float(t_min))
     return t, slot
 
 

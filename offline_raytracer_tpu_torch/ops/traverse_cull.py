@@ -3,25 +3,27 @@
 
 On the TPU the query is two steps: a dense cull of every ray against every
 leaf box, reduced to one list of wanted leaves per 128-ray row in HBM
-(``block_leaf_lists``, kept here in plain torch as the JAX package has it),
-then the kernel's sweep of each row's listed leaves. The kernel here
-(``csrc/traverse_cull.cu``) does both in one launch: each block takes a
-row of rays, culls them against the leaf boxes itself (conservatively: a
-NaN slab never rejects, and a relative slack of 1e-5 widens both ends),
-ORs the wanted bits over the row in shared memory and sweeps the listed
-leaves in leaf-id order, a group of G lanes per ray and each leaf through
-its 16 sub-boxes (``csrc/leaf_sweep.cuh``). ``row_cull_plain`` is the
-plain version of that cull.
+(the JAX package's ``block_leaf_lists``), then the kernel's sweep of each
+row's listed leaves. The kernel here (``csrc/traverse_cull.cu``) does
+both in one launch: each block takes a row of rays, culls them against the
+leaf boxes itself (conservatively: a NaN slab never rejects, and a
+relative slack of 1e-5 widens both ends), ORs the wanted bits over the row
+in shared memory and sweeps the listed leaves in leaf-id order, a group of
+G lanes per ray and each leaf through its 16 sub-boxes
+(``csrc/leaf_sweep.cuh``). ``row_cull_plain`` is the plain version of that
+cull.
 
 ``bvh_hit_ts_cull`` takes the kernel for CUDA tensors and the plain dense
-sweep (``traverse.tri_hit_plain``) for CPU tensors; there is no fallback
-from one to the other. Contract: ``ops/traverse.py``.
+sweep (``traverse.tri_hit_plain``) for CPU tensors
+(``ops/_kernels.takes_kernel``); there is no fallback from one to the
+other. Contract: ``ops/traverse.py``.
 """
 
 from __future__ import annotations
 
 import torch
 
+from offline_raytracer_tpu_torch.ops import _kernels
 from offline_raytracer_tpu_torch.ops.traverse import (
     TriTables, check_query, group_size, launch_query, live_rays,
     tri_hit_plain)
@@ -39,48 +41,6 @@ KERNEL_LAUNCHES = 0
 def cull_ok(tables: TriTables) -> bool:
     return (tables.leaf_bounds is not None
             and tables.leaf_bounds.shape[1] <= MAX_CULL_LEAVES)
-
-
-def block_leaf_lists(leaf_bounds, m_occ: int, ro, rd, t_bound,
-                     block: int = LANE):
-    """Dense cull -> per-block wanted-leaf lists (the JAX package's list
-    step, exact slab test).
-
-    ro, rd: (R, 3) with R a multiple of ``block``; ``t_bound``: (R,) far
-    bound (inf for closest hit, the light distance for shadow rays, <= 0
-    for a dead lane). Returns (lists (R / block, L) int32, counts
-    (R / block, 1) int32): lists[b, :counts[b]] are the leaves any ray of
-    block b may hit, in leaf-id order, followed by the others.
-    """
-    lb = leaf_bounds
-    L = lb.shape[1]
-    R = ro.shape[0]
-    iota = torch.arange(L, dtype=torch.int32, device=ro.device)
-    occupied = iota[None, :] < m_occ
-    step = max(block, CHUNK_RAYS // block * block)
-    flags = []
-    for r0 in range(0, R, step):
-        o, inv = ro[r0:r0 + step], 1.0 / rd[r0:r0 + step]
-
-        def axis_ts(k):
-            t0 = (lb[k][None, :] - o[:, k:k + 1]) * inv[:, k:k + 1]
-            t1 = (lb[k + 3][None, :] - o[:, k:k + 1]) * inv[:, k:k + 1]
-            return torch.minimum(t0, t1), torch.maximum(t0, t1)
-
-        n0, f0 = axis_ts(0)
-        n1, f1 = axis_ts(1)
-        n2, f2 = axis_ts(2)
-        tn = torch.maximum(torch.maximum(n0, n1), n2)
-        tf = torch.minimum(torch.minimum(f0, f1), f2)
-        near = torch.clamp(tn, min=0.0)
-        wants = ((tf >= near) & (near < t_bound[r0:r0 + step, None])
-                 & occupied)
-        flags.append(wants.reshape(-1, block, L).any(1))
-    flags = torch.cat(flags)
-    key = torch.where(flags, iota[None, :], L + iota[None, :])
-    lists = torch.argsort(key, dim=1).to(torch.int32)
-    counts = flags.sum(1, dtype=torch.int32)[:, None]
-    return lists, counts
 
 
 def row_cull_plain(tables: TriTables, ro, rd, t_min, t_far=None,
@@ -145,8 +105,6 @@ def bvh_hit_ts_cull(tables: TriTables, ro, rd, t_min, t_far=None,
                     any_hit: bool = False):
     """Cull-and-sweep closest or any hit: the kernel for CUDA tensors, the
     plain dense sweep for CPU tensors, an error for anything else."""
-    if ro.device.type == "cuda":
+    if _kernels.takes_kernel(ro.device, "triangle query"):
         return bvh_hit_ts_cull_cuda(tables, ro, rd, t_min, t_far, any_hit)
-    if ro.device.type == "cpu":
-        return tri_hit_plain(tables, ro, rd, t_min, t_far, any_hit)
-    raise ValueError(f"no triangle query for device {ro.device}")
+    return tri_hit_plain(tables, ro, rd, t_min, t_far, any_hit)

@@ -7,14 +7,15 @@ with a shared node stack. The kernel here (``csrc/traverse_packet.cu``)
 does not: it gives each ray a group of G lanes and its own stackless walk
 (heap ids and a 32-bit trail), nearer child first, and sweeps each leaf it
 reaches through its 16 sub-boxes with the group's lanes
-(``csrc/leaf_sweep.cuh``). ``bvh_hit_ts_packet`` takes the
-kernel for CUDA tensors and the plain dense sweep
-(``traverse.tri_hit_plain``) for CPU tensors; there is no fallback from
-one to the other. Contract: ``ops/traverse.py``.
+(``csrc/leaf_sweep.cuh``). ``bvh_hit_ts_packet`` takes the kernel for
+CUDA tensors and the plain dense sweep (``traverse.tri_hit_plain``) for
+CPU tensors (``ops/_kernels.takes_kernel``); there is no fallback from one
+to the other. Contract: ``ops/traverse.py``.
 """
 
 from __future__ import annotations
 
+from offline_raytracer_tpu_torch.ops import _kernels
 from offline_raytracer_tpu_torch.ops.traverse import (
     TriTables, check_query, group_size, launch_query, tri_hit_plain)
 
@@ -45,8 +46,6 @@ def bvh_hit_ts_packet(tables: TriTables, ro, rd, t_min, t_far=None,
                       any_hit: bool = False):
     """Tree-walk closest or any hit: the kernel for CUDA tensors, the
     plain dense sweep for CPU tensors, an error for anything else."""
-    if ro.device.type == "cuda":
+    if _kernels.takes_kernel(ro.device, "triangle query"):
         return bvh_hit_ts_packet_cuda(tables, ro, rd, t_min, t_far, any_hit)
-    if ro.device.type == "cpu":
-        return tri_hit_plain(tables, ro, rd, t_min, t_far, any_hit)
-    raise ValueError(f"no triangle query for device {ro.device}")
+    return tri_hit_plain(tables, ro, rd, t_min, t_far, any_hit)

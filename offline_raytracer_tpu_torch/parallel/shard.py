@@ -310,7 +310,7 @@ def run_ranks(fn, size: int, *args, device="cuda", backend: str | None = None,
     ``threads``: torch's intra-op threads per rank."""
     if scene_device(device).type == "cuda":
         from offline_raytracer_tpu_torch.ops import _kernels
-        _kernels.build_all(_kernels.SIGNATURES)
+        _kernels.build_all(_kernels.LIBRARIES)
     if init_method is None:
         init_method = f"tcp://127.0.0.1:{free_port()}"
     ctx = torch.multiprocessing.get_context("spawn")

@@ -9,29 +9,25 @@ packages trace the same paths from the same (seed, pixel, sample, bounce):
   ``j & 1``, mapped to ``(word >> 8) * 2**-24``.
 
 Keys are (R, 2) int64 tensors holding 32-bit words. The draws and the
-per-ray keys dispatch on the tensors' device, as ``ops/mega.mega_segment``
-does:
+per-ray keys follow the port's device rule (``ops/_kernels.takes_kernel``):
 
 - CUDA tensors take the hand-written kernel ``csrc/threefry.cu`` (one
   launch per ``uniform_planes`` or ``pixel_sample_keys`` call, counted in
   ``KERNEL_LAUNCHES``), which draws in native uint32 arithmetic;
-- any other tensors take the plain version (``uniform_planes_plain``,
+- CPU tensors take the plain version (``uniform_planes_plain``,
   ``pixel_sample_keys_plain``): the rounds on int64 words masked to 32
   bits, since PyTorch has no uint32 add or shift on the CPU. It is the
   reference the kernel is tested against, and the CPU tests hold it to
   ``jax.random``.
 
-Both give the same bits, so the choice changes no output. While the
-recorder is on (``utils/profiling``), the counters ``rng.kernel_planes``
-and ``rng.plain_planes`` add the uniform planes (rows of R floats) each
-route wrote.
+Both give the same bits, so the choice changes no output.
 """
 
 from __future__ import annotations
 
 import torch
 
-from offline_raytracer_tpu_torch.utils import profiling
+from offline_raytracer_tpu_torch.ops import _kernels
 
 _MASK = 0xFFFFFFFF
 _ROT_A = (13, 15, 26, 6)
@@ -93,18 +89,12 @@ def _launch(mode, out, in0, in1=None, in2=None, tag_lo=0, n_tags=0, n=0):
     """One launch of ``csrc/threefry.cu`` writing ``out``, on the current
     stream, no sync."""
     global KERNEL_LAUNCHES
-    from offline_raytracer_tpu_torch.ops import _kernels
-
-    fn = _kernels.load("threefry")
-    with torch.cuda.device(out.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(mode, in0.data_ptr(),
-                 None if in1 is None else in1.data_ptr(),
-                 None if in2 is None else in2.data_ptr(), out.data_ptr(),
-                 out.shape[-1] if mode == _MODE_PLANES else out.shape[0],
-                 tag_lo, n_tags, n, stream)
-    if err != 0:
-        raise RuntimeError(f"threefry kernel launch failed: CUDA error {err}")
+    _kernels.launch(
+        "threefry", out.device, mode, in0.data_ptr(),
+        None if in1 is None else in1.data_ptr(),
+        None if in2 is None else in2.data_ptr(), out.data_ptr(),
+        out.shape[-1] if mode == _MODE_PLANES else out.shape[0], tag_lo,
+        n_tags, n)
     KERNEL_LAUNCHES += 1
 
 
@@ -139,12 +129,12 @@ def pixel_sample_keys_cuda(root, pixel_ids, sample_ids):
 
 def pixel_sample_keys(root, pixel_ids, sample_ids):
     """Per-ray keys (R, 2) for (pixel, spp-sample) pairs: the kernel for
-    CUDA pixel ids, the plain version otherwise.
+    CUDA pixel ids, the plain version for CPU ones.
 
     A ray's whole random sequence is a function of (seed, pixel, sample),
     never of its slot in a batch.
     """
-    if pixel_ids.device.type == "cuda":
+    if _kernels.takes_kernel(pixel_ids.device, "threefry draw"):
         return pixel_sample_keys_cuda(root, pixel_ids, sample_ids)
     return pixel_sample_keys_plain(root, pixel_ids, sample_ids)
 
@@ -204,14 +194,11 @@ def uniform_planes(keys, tag_lo: int, n_tags: int, n: int):
     """(R, 2) keys -> (n_tags * n, R) float32 uniform planes: rows
     [i * n, i * n + n) are the n uniforms of tag ``tag_lo + i`` (as
     ``tagged_uniform_planes``). The kernel for CUDA keys, the plain version
-    otherwise; counted in ``rng.kernel_planes`` or ``rng.plain_planes``."""
-    if isinstance(keys, torch.Tensor) and keys.device.type == "cuda":
-        out = uniform_planes_cuda(keys, tag_lo, n_tags, n)
-        profiling.count("rng.kernel_planes", out.shape[0])
-    else:
-        out = uniform_planes_plain(keys, tag_lo, n_tags, n)
-        profiling.count("rng.plain_planes", out.shape[0])
-    return out
+    for CPU keys."""
+    if (isinstance(keys, torch.Tensor)
+            and _kernels.takes_kernel(keys.device, "threefry draw")):
+        return uniform_planes_cuda(keys, tag_lo, n_tags, n)
+    return uniform_planes_plain(keys, tag_lo, n_tags, n)
 
 
 def tagged_uniform_planes(keys, tag: int, n: int):

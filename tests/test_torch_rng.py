@@ -7,7 +7,7 @@ import pytest
 import torch
 
 from offline_raytracer_tpu.utils import rng as jax_rng
-from offline_raytracer_tpu_torch.utils import profiling, rng
+from offline_raytracer_tpu_torch.utils import rng
 
 torch.set_num_threads(2)
 
@@ -60,16 +60,6 @@ def test_tagged_uniform_planes_bitwise(tag, n):
         np.asarray(jax_rng.tagged_uniforms(jk, tag, n)))
 
 
-@pytest.fixture
-def recorder_off():
-    """The recorder off and empty before and after the test."""
-    profiling.disable()
-    profiling.flush()
-    yield
-    profiling.disable()
-    profiling.flush()
-
-
 @pytest.mark.parametrize("tag_lo,n_tags,n", [(0, 8, 8), (5, 3, 7),
                                              (11, 1, 1), (3, 2, 0),
                                              (rng.CAMERA_TAG, 1, 4),
@@ -114,19 +104,20 @@ def test_cuda_routes_refuse_cpu_tensors():
         rng.pixel_sample_keys_cuda(rng.render_key(1), ids, ids)
 
 
-def test_cpu_takes_plain_route(recorder_off):
-    """CPU tensors draw in the plain version: ``rng.plain_planes`` counts
-    every plane, ``rng.kernel_planes`` and ``KERNEL_LAUNCHES`` do not
-    move."""
+def test_cpu_takes_plain_route():
+    """CPU tensors draw in the plain version: every key and plane is the
+    plain version's, and ``KERNEL_LAUNCHES`` does not move."""
     ids = torch.arange(300, dtype=torch.int32)
+    smp = torch.full_like(ids, 2)
+    root = rng.render_key(5)
     before = rng.KERNEL_LAUNCHES
-    with profiling.recording():
-        keys = rng.pixel_sample_keys(rng.render_key(5), ids,
-                                     torch.full_like(ids, 2))
-        rng.uniform_planes(keys, 0, 3, 8)
-        rng.tagged_uniforms(keys, rng.CAMERA_TAG, 4)
-        rng.bounce_uniforms(keys, 7, 5)
-    counters = profiling.flush()["counters"]
-    assert counters["rng.plain_planes"] == 3 * 8 + 4 + 5
-    assert "rng.kernel_planes" not in counters
+    keys = rng.pixel_sample_keys(root, ids, smp)
+    assert torch.equal(keys, rng.pixel_sample_keys_plain(root, ids, smp))
+    plain = rng.uniform_planes_plain
+    assert torch.equal(rng.uniform_planes(keys, 0, 3, 8),
+                       plain(keys, 0, 3, 8))
+    assert torch.equal(rng.tagged_uniforms(keys, rng.CAMERA_TAG, 4),
+                       plain(keys, rng.CAMERA_TAG, 1, 4).T)
+    assert torch.equal(rng.bounce_uniforms(keys, 7, 5),
+                       plain(keys, 7, 1, 5).T)
     assert rng.KERNEL_LAUNCHES == before

@@ -15,7 +15,7 @@ import torch
 from offline_raytracer_tpu_torch import RenderConfig
 from offline_raytracer_tpu_torch.ops import mega
 from offline_raytracer_tpu_torch.render import render_block_stats
-from offline_raytracer_tpu_torch.utils import profiling, rng
+from offline_raytracer_tpu_torch.utils import rng
 
 SIZE = 64
 
@@ -25,15 +25,6 @@ def device():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (runs on the card)")
     return torch.device("cuda", 0)
-
-
-@pytest.fixture
-def recorder_off():
-    profiling.disable()
-    profiling.flush()
-    yield
-    profiling.disable()
-    profiling.flush()
 
 
 def _words(R, seed):
@@ -116,15 +107,17 @@ def test_render_bitwise_with_plain_route(device, monkeypatch):
 
 
 @pytest.mark.cuda
-def test_launches_per_block(device, recorder_off):
+def test_launches_per_block(device, monkeypatch):
     """One kernel launch per segment and two per sample (the keys and the
-    camera's uniforms); no plain plane on the card."""
+    camera's uniforms); no plain draw on the card."""
     scene, cfg, ids, tables = _bunny(device)
     n_segs = len(mega.segment_plan(cfg)[0])
+
+    def refuse(*args):
+        raise AssertionError("a plain draw ran on the card")
+
+    monkeypatch.setattr(rng, "uniform_planes_plain", refuse)
+    monkeypatch.setattr(rng, "pixel_sample_keys_plain", refuse)
     before = rng.KERNEL_LAUNCHES
-    with profiling.recording():
-        render_block_stats(scene, cfg, ids, 0, 3, tables)
-    counters = profiling.flush()["counters"]
+    render_block_stats(scene, cfg, ids, 0, 3, tables)
     assert rng.KERNEL_LAUNCHES - before == 3 * (n_segs + 2)
-    assert counters.get("rng.plain_planes", 0) == 0
-    assert counters["rng.kernel_planes"] == 3 * (8 * cfg.max_bounces + 4)

@@ -1,7 +1,7 @@
 """The port's gradient sky and the wavefront bounce's spans and counters, on
 the CPU: a scene without a sky renders bitwise as the commit before the sky
-did, with as many ATen operations (``tests/golden/no_sky_routes.npz``,
-``torch_sky_cases.py``); the segment kernel refuses a sky; a miss adds
+did, with the ATen operations the golden file records
+(``tests/golden/no_sky_routes.npz``, ``torch_sky_cases.py``); the segment kernel refuses a sky; a miss adds
 throughput times the sky; the replay branch's sky term against the tracing
 branch's; the spans and counters of a bounce; and the final scene of *Ray
 Tracing in One Weekend* (``portbench/configs/rtiow_final.json``) against
@@ -73,8 +73,11 @@ def _rtiow_cfg(c, **kw):
 
 
 def test_no_sky_renders_bitwise_as_before():
-    """Every route of a sky-less scene gives the outputs and issues the
-    ATen operations of the commit before the sky (one CPU thread)."""
+    """Every route of a sky-less scene gives the outputs of the commit
+    before the sky and issues the ATen operations the golden file records
+    (one CPU thread): the segment route and the replay as many as then,
+    the forward wavefront routes 3 fewer a bounce since its material
+    parameters are gathered by the hit's material, as the replay's are."""
     got = torch_sky_cases.flat(torch_sky_cases.cases())
     want = np.load(GOLDEN)
     assert sorted(got) == sorted(want.files)

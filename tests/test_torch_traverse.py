@@ -193,22 +193,6 @@ def _bvh(n, seed, edit=None):
             (v0 + v1 + v2) / 3)
 
 
-def test_block_leaf_lists_match_jax():
-    from offline_raytracer_tpu.ops.traverse_cull import block_leaf_lists
-
-    jb, tables, c = _bvh(700, seed=21)       # 6 leaves
-    ro, rd = random_rays(512, seed=9, targets=c)
-    tb = np.random.RandomState(2).uniform(0.0, 12.0, 512).astype(np.float32)
-    tb[::9] = 0.0
-    ref_l, ref_c = block_leaf_lists(jb, jnp.asarray(ro), jnp.asarray(rd),
-                                    jnp.asarray(tb), 128)
-    got_l, got_c = traverse_cull.block_leaf_lists(
-        tables.leaf_bounds, tables.m_occ, T(ro), T(rd), T(tb))
-    np.testing.assert_array_equal(got_c.numpy(), _np(ref_c))
-    np.testing.assert_array_equal(got_l.numpy(), _np(ref_l))
-    assert (got_c.numpy() > 0).all()
-
-
 def _mesh_tables(name):
     """(port scene, its TriTables) of a scene with triangles."""
     from offline_raytracer_tpu_torch.models.scenes import bunny_builder
