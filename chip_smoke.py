@@ -101,7 +101,14 @@ Phases, each printing its own line; any failure exits non-zero:
    winners and distances, bit for bit, on every lane it answers, a dead
    lane a miss; each timed with CUDA events beside its bound
    (the bytes of ``portbench/roofline_wave.hit_bound_ms`` and the pair
-   tests at the card's FP32 issue rate, whichever is larger).
+   tests at the card's FP32 issue rate, whichever is larger);
+13. the wavefront route's shading kernel (``csrc/wave_shade.cu``) on the
+   same full-size sample: bounces 0 and 10 of its 11 are captured (the
+   sample launching the kernel exactly once a bounce) and each is shaded
+   through the kernel, into new planes and in place, and through the eager
+   body (``integrator.shade_bounce``), every output plane bit for bit on
+   every lane; each timed with CUDA events, the bounce's draws included,
+   beside its bound (``shade_bound``).
 
 The line before the last is the kernels' JSON record (each kernel's
 launches on its route, its error and time against its plain version, its
@@ -111,6 +118,7 @@ traversal kernels times and bounds are per sample, summed over its 16
 queries, with each query's beside them, and for the threefry kernel
 summed over a sample's 6 calls, with each call's beside them, and for the
 sphere sweep the masked query of phase 12, with the every-lane one beside
+it, and for the shading kernel bounce 10 in place, with bounce 0 beside
 it); the last line is
 ``{"ok": true, "device": {...}}``. Without CUDA it exits 1 and prints no
 result.
@@ -145,7 +153,7 @@ CLI_EVERY = 4             # their checkpoint chunk
 PAR_SPP = 4               # samples per pixel of the sharded renders
 RING_SPP = 1              # and of the ring's render
 KERNELS = ("mega", "traverse_cull", "traverse_packet", "threefry",
-           "sphere_sweep")
+           "sphere_sweep", "wave_shade")
 # the card's peaks (NVIDIA H100 SXM data sheet): device memory bytes/s and
 # float32 FLOP/s outside the tensor cores
 PEAK_BYTES = 3.35e12
@@ -170,6 +178,15 @@ PEAK_ALU_OPS = 64 * 132 * 1.98e9
 SPHERE_TEST_OPS = 17
 PEAK_FP32_ISSUE = 128 * 132 * 1.98e9
 SWEEP_BOUNCE = 10         # the bounce whose closest-hit query phase 12 takes
+# bytes the shading kernel moves a lane: a live one reads its hit (21), its
+# state (53), its 8 uniforms (32) and its material's rows (57) and writes
+# its state (53); a dead one reads its alive byte, and when the kernel
+# writes new planes copies its direction, throughput and radiance and
+# writes its origin, alive byte and prev_pdf (37 + 53)
+SHADE_LIVE_BYTES = 216
+SHADE_DEAD_BYTES = 1
+SHADE_DEAD_COPY_BYTES = 90
+SHADE_BOUNCES = (0, SWEEP_BOUNCE)   # the bounces phase 13 takes
 
 
 def log(msg):
@@ -788,6 +805,138 @@ def sphere_sweep_phase(dev, card):
             "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
             "bound_by": b_by, "every_lane_ms": e_ms,
             "every_lane_bound_ms": e_b_ms, "library_ms": None}
+
+
+def shade_bound(lanes, live, in_place):
+    """(bound_ms, bound_by) of one shading launch over ``lanes`` lanes of
+    which ``live`` live on entry: the bytes above at the card's bandwidth,
+    or ``SHADE_FLOP`` float32 operations a live lane at its peak."""
+    dead = SHADE_DEAD_BYTES if in_place else SHADE_DEAD_COPY_BYTES
+    return bound(live * SHADE_LIVE_BYTES + (lanes - live) * dead,
+                 live * SHADE_FLOP)
+
+
+def time_each_ms(prepare, fn, reps):
+    """Mean CUDA-event ms of ``fn(prepare())``, ``prepare`` untimed."""
+    import torch
+
+    fn(prepare())
+    total = 0.0
+    for _ in range(reps):
+        arg = prepare()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn(arg)
+        end.record()
+        torch.cuda.synchronize()
+        total += start.elapsed_time(end)
+    return total / reps
+
+
+def wave_shade_phase(dev, card):
+    """Phase 13: the shading kernel against the eager body on bounces
+    ``SHADE_BOUNCES`` of a full-size sample of the final scene. Returns the
+    kernels record's entry."""
+    import torch
+    from offline_raytracer_tpu_torch import integrator
+    from offline_raytracer_tpu_torch.ops import wave_shade
+    from offline_raytracer_tpu_torch.ops.camera import generate_rays
+    from offline_raytracer_tpu_torch.render import _paths_fn, tile_pixel_ids
+    from offline_raytracer_tpu_torch.utils import rng
+
+    scene, cfg = rtiow_scene(dev)
+    cfg = cfg.replace(max_bounces=SWEEP_BOUNCE + 1)
+    ids = torch.from_numpy(tile_pixel_ids(cfg.width, cfg.height)).to(dev)
+    keys = rng.pixel_sample_keys(rng.render_key(cfg.seed, dev), ids,
+                                 torch.zeros_like(ids))
+    ro, rd = generate_rays(scene.camera, cfg, ids, keys)
+    seen = {}
+    original = wave_shade.shade_cuda
+
+    def recording(tables, cfg_, b, hit, state, u, in_place=False):
+        if b in SHADE_BOUNCES:
+            seen[b] = (hit, tuple(x.clone() for x in state), in_place)
+        return original(tables, cfg_, b, hit, state, u, in_place)
+
+    wave_shade.shade_cuda = recording
+    wave_shade.KERNEL_LAUNCHES = 0
+    try:
+        with torch.no_grad():
+            _paths_fn(scene, cfg)(ro, rd, keys)
+    finally:
+        wave_shade.shade_cuda = original
+    torch.cuda.synchronize()
+    path_launches = wave_shade.KERNEL_LAUNCHES
+    if path_launches != cfg.max_bounces or sorted(seen) != list(
+            SHADE_BOUNCES):
+        fail(f"wave shade: {cfg.max_bounces} bounces launched the kernel "
+             f"{path_launches} times, bounces {sorted(seen)} captured")
+    tables = wave_shade.shade_tables(scene.materials, scene.sky)
+    planes = ("origin", "direction", "throughput", "radiance", "alive",
+              "prev_pdf")
+    rows = []
+    with torch.no_grad():
+        for b in SHADE_BOUNCES:
+            hit, state_in, in_place = seen[b]
+            state = integrator.PathState(*state_in, keys=keys)
+
+            def eager():
+                u8 = rng.bounce_uniforms(keys, b, 8)
+                return integrator.shade_bounce(
+                    scene, cfg, state, b, hit,
+                    integrator.surface_record(scene, cfg, u8, hit.mat))
+
+            def kernel(copies=None):
+                u = rng.uniform_planes(keys, b, 1, 8)
+                return wave_shade.shade_cuda(
+                    tables, cfg, b, hit, state_in if copies is None
+                    else copies, u, in_place=copies is not None)
+
+            def fresh():
+                return tuple(x.clone() for x in state_in)
+
+            want = eager()
+            before = wave_shade.KERNEL_LAUNCHES
+            outs = {"new planes": kernel(), "in place": kernel(fresh())}
+            torch.cuda.synchronize()
+            if wave_shade.KERNEL_LAUNCHES != before + 2:
+                fail(f"wave shade launches "
+                     f"{wave_shade.KERNEL_LAUNCHES - before}, want 2")
+            for how, got in outs.items():
+                for name, g in zip(planes, got):
+                    w = getattr(want, name).contiguous()
+                    if name == "alive":
+                        differ = int((g != w).sum())
+                    else:
+                        differ = int((g.view(torch.int32)
+                                      != w.view(torch.int32)).sum())
+                    if differ:
+                        fail(f"wave shade bounce {b}, {how}: {name} differs "
+                             f"bitwise from the eager body's on {differ} "
+                             f"values")
+            R = ro.shape[0]
+            live = int(state.alive.sum())
+            k_ms = time_each_ms(fresh, kernel, 20) if in_place else time_ms(
+                kernel, 20)
+            p_ms = time_ms(eager, 3)
+            b_ms, b_by = shade_bound(R, live, in_place)
+            log(f"phase 13 wave shade: rtiow_final bounce {b}, {R} lanes, "
+                f"{live} live ({100.0 * live / R:.3f}%), "
+                f"{'in place' if in_place else 'new planes'}; outputs "
+                f"bitwise the eager body's; kernel {k_ms:.4f} ms (bound "
+                f"{b_ms:.4f} ms, {b_by}), eager {p_ms:.3f} ms [{card}]")
+            rows.append({"bounce": b, "live": live, "in_place": in_place,
+                         "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
+                         "bound_by": b_by})
+    last = rows[-1]
+    return {"name": "wave_shade", "route": "cuda",
+            "source": "offline_raytracer_tpu_torch/csrc/wave_shade.cu",
+            "replaces": None, "max_abs_err": 0.0, "launches": path_launches,
+            "lanes": ro.shape[0], "live": last["live"], "ms": last["ms"],
+            "plain_ms": last["plain_ms"], "bound_ms": last["bound_ms"],
+            "bound_by": last["bound_by"], "library_ms": None,
+            "bounces": rows}
 
 
 def take_counts():
@@ -1469,6 +1618,7 @@ def main() -> int:
     cli_launches = cli_phase(dev, card)
     par = parallel_phase(scene, order, card)
     sweep = sphere_sweep_phase(dev, card)
+    shade = wave_shade_phase(dev, card)
     wave[0]["ring_launches"] = par["cull"]
     wave[1]["ring_launches"] = par["packet"]
     record = {"kernels": [{
@@ -1482,7 +1632,7 @@ def main() -> int:
         "bound_ms": results[0]["bound_ms"],
         "bound_by": results[0]["bound_by"], "library_ms": None,
         "group": {x["b"]: x["group"] for x in segments},
-        "segments": segments}] + wave + [draws, sweep]}
+        "segments": segments}] + wave + [draws, sweep, shade]}
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -12,12 +12,16 @@ sample), so both packages trace the same paths draw for draw.
 A live ray that misses reaches the scene's sky when it has one
 (``scene.types.Sky``), added with MIS weight 1 as NEE never samples it;
 without a sky a miss ends the path with nothing added, and no operation of
-the sky's runs. While the recorder of ``utils/profiling.py`` is on, each
-bounce is spans ``wave.hit`` (the closest-hit query, or the replay's
-recompute of the recorded winner), ``wave.shade`` (the rest, the shadow
-query in ``wave.occlusion`` within it) and counts ``wave.lanes`` (lanes the
-bounce runs), ``wave.live`` (lanes live on entry) and ``wave.escaped``
-(live rays that missed).
+the sky's runs. On the card, the forward route shades a bounce without NEE
+in one launch of ``csrc/wave_shade.cu`` (``ops/wave_shade.py``), bitwise
+the eager body, when no gradient is wanted; the CPU, the replay, autograd
+and NEE run the eager body. While the recorder of ``utils/profiling.py``
+is on, each bounce is spans ``wave.hit`` (the closest-hit query, or the
+replay's recompute of the recorded winner), ``wave.shade`` (the rest, the
+shadow query in ``wave.occlusion`` within it) and counts ``wave.lanes``
+(lanes the bounce runs), ``wave.live`` (lanes live on entry),
+``wave.escaped`` (live rays that missed) and ``wave.shade_kernel`` (lanes
+the kernel shaded).
 
 Differentiable under autograd: hit winners and sampled directions are
 detached; hit geometry, BSDF values and light terms stay attached, and so
@@ -33,10 +37,12 @@ import dataclasses
 
 import torch
 
+from offline_raytracer_tpu_torch.ops import _kernels, wave_shade
 from offline_raytracer_tpu_torch.ops import bsdf as bsdf_ops
 from offline_raytracer_tpu_torch.ops import lights as light_ops
 from offline_raytracer_tpu_torch.ops.intersect import (
     closest_hit_bruteforce, hit_from_params, prefetch_hit_params)
+from offline_raytracer_tpu_torch.scene.types import float_leaves
 from offline_raytracer_tpu_torch.utils import profiling, rng
 from offline_raytracer_tpu_torch.utils.math import normalize
 
@@ -64,6 +70,13 @@ def sky_radiance(sky, direction):
     return (1.0 - a) * sky.bottom + a * sky.top
 
 
+def wants_grad(scene, ro, rd) -> bool:
+    """Would autograd record a graph through these rays or the scene?"""
+    return torch.is_grad_enabled() and (
+        ro.requires_grad or rd.requires_grad
+        or any(x.requires_grad for _, x in float_leaves(scene)))
+
+
 def make_brute_trace_fn(scene, cfg):
     """Closest-hit function (ro, rd, alive=None) -> Hit by the brute-force
     sweep. ``alive`` (R,) bool marks the lanes whose hit is wanted: on the
@@ -73,8 +86,6 @@ def make_brute_trace_fn(scene, cfg):
     def trace(ro, rd, alive=None):
         return closest_hit_bruteforce(scene, ro, rd, cfg.t_min, alive=alive)
     return trace
-
-
 
 
 def _map(fn, tree):
@@ -142,6 +153,139 @@ def _replay_tables(scene, cfg, ids, vis, keys, b_lo):
             "vis": vis}
 
 
+def shade_bounce(scene, cfg, state, bounce_idx, hit, surf,
+                 visible_of=None):
+    """One bounce's shading in eager PyTorch operations: the emission a
+    live ray's hit adds (MIS-weighted), the sky a live miss reaches, NEE
+    with its shadow query ``visible_of(x, wi_l, dist_l, worth) -> visible``
+    (read only when the scene has lights and ``cfg.enable_nee``), Russian
+    roulette and the BSDF continuation, given the bounce's ``Hit`` and its
+    ``surface_record``; the next ``PathState``. The CPU route, the replay,
+    autograd and NEE run it; it is the twin the shading kernel
+    (``ops/wave_shade.py``) is held to on the card."""
+    R_cur = state.alive.shape[0]     # replay tiers shrink the batch
+    f32 = dict(dtype=torch.float32, device=state.alive.device)
+    do_nee = cfg.enable_nee and scene.n_lights > 0
+    do_mis = do_nee and cfg.enable_mis
+    u8 = surf["u8"]
+    emit = surf["emit"]
+    light_idx = surf["light_idx"]
+    hit_light = surf["is_light"] & hit.valid
+
+    # ---- emission (implicit light connection)
+    if do_mis:
+        pdf_area = surf["pdf_area_hit"]
+        cos_l = torch.sum(hit.normal * (-state.direction), -1)
+        p_nee = light_ops.solid_angle_pdf(pdf_area, hit.t, cos_l)
+        mis_applies = (light_idx >= 0) & (state.prev_pdf >= 0.0)
+        mis_w = torch.where(
+            mis_applies, light_ops.mis_balance(state.prev_pdf, p_nee),
+            1.0)
+    elif do_nee:
+        # NEE without MIS: an emitter found by a sampled continuation
+        # is integrated by the explicit connection already, unless it
+        # is back-facing (NEE only samples front faces)
+        front = torch.sum(hit.normal * (-state.direction), -1) > 1e-6
+        mis_w = torch.where(
+            (light_idx >= 0) & (state.prev_pdf >= 0.0) & front, 0.0, 1.0)
+    else:
+        mis_w = torch.ones((R_cur,), **f32)
+    if cfg.reference_rr_quirk and cfg.russian_roulette < 1.0:
+        # the reference's uncompensated final RR gate on light-
+        # terminated paths, only after a bounce that ran an RR gate
+        if bounce_idx > cfg.rr_start_bounce:
+            mis_w = mis_w * torch.where(state.prev_pdf >= 0.0,
+                                        cfg.russian_roulette, 1.0)
+    add_emit = state.alive & hit_light
+    radiance = state.radiance + torch.where(
+        add_emit[..., None],
+        state.throughput * emit * mis_w.detach()[..., None], 0.0)
+
+    # ---- the sky: a live ray that misses (a recorded id of -1 in the
+    # replay) reaches it; NEE never samples it, so its MIS weight is 1
+    escaped = None
+    if scene.sky is not None:
+        escaped = state.alive & ~hit.valid
+        radiance = radiance + torch.where(
+            escaped[..., None],
+            state.throughput * sky_radiance(scene.sky, state.direction),
+            0.0)
+    if profiling.enabled():
+        if escaped is None:
+            escaped = state.alive & ~hit.valid
+        profiling.count("wave.escaped", escaped.sum(dtype=torch.float32))
+
+    alive = state.alive & hit.valid & ~hit_light
+
+    # ---- surface interaction: backed-off hit point; a miss gets a
+    # finite dummy t so no inf enters the graph
+    t_safe = torch.where(hit.valid, hit.t, 1.0)
+    x = state.origin + (t_safe - cfg.hit_eps)[..., None] * state.direction
+    x = torch.where(alive[..., None], x, state.origin)
+    wo = -state.direction
+    n = hit.normal
+    matp = surf["matp"]
+    seg_len = torch.where(hit.valid, hit.t, 0.0)
+
+    # ---- next-event estimation
+    if do_nee:
+        ls = surf["ls"]
+        to_l = ls.p - x
+        dist_l = torch.sqrt(torch.sum(to_l * to_l, -1))
+        wi_l = to_l / torch.clamp(dist_l, min=1e-9)[..., None]
+        cos_l = torch.sum(ls.normal * (-wi_l), -1)
+        p_nee_solid = light_ops.solid_angle_pdf(ls.pdf_area, dist_l,
+                                                cos_l)
+        # shadow query with the light distance as the bound
+        worth = alive & (cos_l > 1e-6)
+        visible = visible_of(x, wi_l, dist_l, worth)
+        f_l = bsdf_ops.eval_bsdf(n, wi_l, wo, matp, seg_len)
+        if do_mis:
+            p_b = bsdf_ops.pdf_bsdf(n, wi_l, wo, matp)
+            w_l = light_ops.mis_balance(p_nee_solid, p_b)
+        else:
+            w_l = torch.ones((R_cur,), **f32)
+        good = alive & visible & (cos_l > 1e-6) & (p_nee_solid > 1e-9)
+        # cos/dist^2 and the area pdf stay attached (they carry the
+        # derivatives in shading and light geometry); only the MIS
+        # weight is detached
+        geom = cos_l / torch.clamp(dist_l * dist_l, min=1e-12)
+        contrib = (state.throughput * f_l * ls.emit
+                   * (geom * w_l.detach()
+                      / torch.clamp(ls.pdf_area, min=1e-12))[..., None])
+        radiance = radiance + torch.where(good[..., None], contrib, 0.0)
+
+    # ---- Russian roulette
+    throughput = state.throughput
+    if cfg.russian_roulette < 1.0 and bounce_idx >= cfg.rr_start_bounce:
+        alive = alive & (u8[:, 4] < cfg.russian_roulette)
+        throughput = throughput / cfg.russian_roulette
+
+    # ---- BSDF continuation
+    samp = bsdf_ops.sample_bsdf(u8[:, 5:8], n, wo, matp)
+    wi = normalize(samp.wi).detach()
+    pdf = bsdf_ops.pdf_bsdf(n, wi, wo, matp).detach()
+    f = bsdf_ops.eval_bsdf(n, wi, wo, matp, seg_len)
+    ok_pdf = pdf > 1e-8
+    throughput = torch.where(
+        (alive & ok_pdf)[..., None],
+        throughput * f / torch.clamp(pdf, min=1e-8)[..., None],
+        throughput)
+    alive = alive & ok_pdf
+
+    # transmission pushes through the surface instead of backing off
+    x_next = torch.where(
+        samp.is_transmission[..., None],
+        state.origin + (t_safe + cfg.hit_eps)[..., None] * state.direction,
+        x)
+
+    return PathState(
+        origin=torch.where(alive[..., None], x_next, PARK_ORIGIN),
+        direction=torch.where(alive[..., None], wi, state.direction),
+        throughput=throughput, radiance=radiance, alive=alive,
+        prev_pdf=torch.where(alive, pdf, -1.0), keys=state.keys)
+
+
 def trace_paths(scene, cfg, trace_fn, origin, direction, ps_keys,
                 collect_stats: bool = False, occl_fn=None, replay=None):
     """Trace R paths to completion; radiance (R, 3).
@@ -174,7 +318,6 @@ def trace_paths(scene, cfg, trace_fn, origin, direction, ps_keys,
         prev_pdf=torch.full((R,), -1.0, **f32), keys=ps_keys)
 
     do_nee = cfg.enable_nee and scene.n_lights > 0
-    do_mis = do_nee and cfg.enable_mis
 
     # where a bounce's hit, surface record and NEE visibility come from:
     # the forward route queries and draws; the replay reads ``rec``, its
@@ -213,6 +356,15 @@ def trace_paths(scene, cfg, trace_fn, origin, direction, ps_keys,
         def visible_of(x, wi_l, dist_l, worth):
             return rec["vis"] > 0.5
 
+    # the forward route on the card shades each bounce without NEE in one
+    # kernel launch (ops/wave_shade.py), bitwise ``shade_bounce``, which
+    # the CPU, the replay, autograd and NEE keep
+    tables = None
+    if (replay is None and not do_nee
+            and _kernels.takes_kernel(dev, "wavefront shading")
+            and not wants_grad(scene, origin, direction)):
+        tables = wave_shade.shade_tables(scene.materials, scene.sky)
+
     def bounce(state, bounce_idx):
         if profiling.enabled():
             profiling.count("wave.lanes", state.alive.shape[0])
@@ -221,128 +373,26 @@ def trace_paths(scene, cfg, trace_fn, origin, direction, ps_keys,
         with profiling.span("wave.hit"):
             hit = hit_of(state)
         with profiling.span("wave.shade"):
-            return shade(state, bounce_idx, hit,
-                         surface_of(state, bounce_idx, hit))
+            if tables is not None:
+                return shade_kernel(state, bounce_idx, hit)
+            return shade_bounce(scene, cfg, state, bounce_idx, hit,
+                                surface_of(state, bounce_idx, hit),
+                                visible_of)
 
-    def shade(state, bounce_idx, hit, surf):
-        R_cur = state.alive.shape[0]     # replay tiers shrink the batch
-        u8 = surf["u8"]
-        emit = surf["emit"]
-        light_idx = surf["light_idx"]
-        hit_light = surf["is_light"] & hit.valid
-
-        # ---- emission (implicit light connection)
-        if do_mis:
-            pdf_area = surf["pdf_area_hit"]
-            cos_l = torch.sum(hit.normal * (-state.direction), -1)
-            p_nee = light_ops.solid_angle_pdf(pdf_area, hit.t, cos_l)
-            mis_applies = (light_idx >= 0) & (state.prev_pdf >= 0.0)
-            mis_w = torch.where(
-                mis_applies, light_ops.mis_balance(state.prev_pdf, p_nee),
-                1.0)
-        elif do_nee:
-            # NEE without MIS: an emitter found by a sampled continuation
-            # is integrated by the explicit connection already, unless it
-            # is back-facing (NEE only samples front faces)
-            front = torch.sum(hit.normal * (-state.direction), -1) > 1e-6
-            mis_w = torch.where(
-                (light_idx >= 0) & (state.prev_pdf >= 0.0) & front, 0.0, 1.0)
-        else:
-            mis_w = torch.ones((R_cur,), **f32)
-        if cfg.reference_rr_quirk and cfg.russian_roulette < 1.0:
-            # the reference's uncompensated final RR gate on light-
-            # terminated paths, only after a bounce that ran an RR gate
-            if bounce_idx > cfg.rr_start_bounce:
-                mis_w = mis_w * torch.where(state.prev_pdf >= 0.0,
-                                            cfg.russian_roulette, 1.0)
-        add_emit = state.alive & hit_light
-        radiance = state.radiance + torch.where(
-            add_emit[..., None],
-            state.throughput * emit * mis_w.detach()[..., None], 0.0)
-
-        # ---- the sky: a live ray that misses (a recorded id of -1 in the
-        # replay) reaches it; NEE never samples it, so its MIS weight is 1
-        escaped = None
-        if scene.sky is not None:
-            escaped = state.alive & ~hit.valid
-            radiance = radiance + torch.where(
-                escaped[..., None],
-                state.throughput * sky_radiance(scene.sky, state.direction),
-                0.0)
+    def shade_kernel(state, bounce_idx, hit):
         if profiling.enabled():
-            if escaped is None:
-                escaped = state.alive & ~hit.valid
-            profiling.count("wave.escaped", escaped.sum(dtype=torch.float32))
-
-        alive = state.alive & hit.valid & ~hit_light
-
-        # ---- surface interaction: backed-off hit point; a miss gets a
-        # finite dummy t so no inf enters the graph
-        t_safe = torch.where(hit.valid, hit.t, 1.0)
-        x = state.origin + (t_safe - cfg.hit_eps)[..., None] * state.direction
-        x = torch.where(alive[..., None], x, state.origin)
-        wo = -state.direction
-        n = hit.normal
-        matp = surf["matp"]
-        seg_len = torch.where(hit.valid, hit.t, 0.0)
-
-        # ---- next-event estimation
-        if do_nee:
-            ls = surf["ls"]
-            to_l = ls.p - x
-            dist_l = torch.sqrt(torch.sum(to_l * to_l, -1))
-            wi_l = to_l / torch.clamp(dist_l, min=1e-9)[..., None]
-            cos_l = torch.sum(ls.normal * (-wi_l), -1)
-            p_nee_solid = light_ops.solid_angle_pdf(ls.pdf_area, dist_l,
-                                                    cos_l)
-            # shadow query with the light distance as the bound
-            worth = alive & (cos_l > 1e-6)
-            visible = visible_of(x, wi_l, dist_l, worth)
-            f_l = bsdf_ops.eval_bsdf(n, wi_l, wo, matp, seg_len)
-            if do_mis:
-                p_b = bsdf_ops.pdf_bsdf(n, wi_l, wo, matp)
-                w_l = light_ops.mis_balance(p_nee_solid, p_b)
-            else:
-                w_l = torch.ones((R_cur,), **f32)
-            good = alive & visible & (cos_l > 1e-6) & (p_nee_solid > 1e-9)
-            # cos/dist^2 and the area pdf stay attached (they carry the
-            # derivatives in shading and light geometry); only the MIS
-            # weight is detached
-            geom = cos_l / torch.clamp(dist_l * dist_l, min=1e-12)
-            contrib = (state.throughput * f_l * ls.emit
-                       * (geom * w_l.detach()
-                          / torch.clamp(ls.pdf_area, min=1e-12))[..., None])
-            radiance = radiance + torch.where(good[..., None], contrib, 0.0)
-
-        # ---- Russian roulette
-        throughput = state.throughput
-        if cfg.russian_roulette < 1.0 and bounce_idx >= cfg.rr_start_bounce:
-            alive = alive & (u8[:, 4] < cfg.russian_roulette)
-            throughput = throughput / cfg.russian_roulette
-
-        # ---- BSDF continuation
-        samp = bsdf_ops.sample_bsdf(u8[:, 5:8], n, wo, matp)
-        wi = normalize(samp.wi).detach()
-        pdf = bsdf_ops.pdf_bsdf(n, wi, wo, matp).detach()
-        f = bsdf_ops.eval_bsdf(n, wi, wo, matp, seg_len)
-        ok_pdf = pdf > 1e-8
-        throughput = torch.where(
-            (alive & ok_pdf)[..., None],
-            throughput * f / torch.clamp(pdf, min=1e-8)[..., None],
-            throughput)
-        alive = alive & ok_pdf
-
-        # transmission pushes through the surface instead of backing off
-        x_next = torch.where(
-            samp.is_transmission[..., None],
-            state.origin + (t_safe + cfg.hit_eps)[..., None] * state.direction,
-            x)
-
-        return PathState(
-            origin=torch.where(alive[..., None], x_next, PARK_ORIGIN),
-            direction=torch.where(alive[..., None], wi, state.direction),
-            throughput=throughput, radiance=radiance, alive=alive,
-            prev_pdf=torch.where(alive, pdf, -1.0), keys=state.keys)
+            profiling.count("wave.escaped", (state.alive & ~hit.valid).sum(
+                dtype=torch.float32))
+            profiling.count("wave.shade_kernel", state.alive.shape[0])
+        u = rng.uniform_planes(state.keys, bounce_idx, 1, 8)
+        # the first bounce reads the caller's rays; the later ones shade
+        # the planes the kernel wrote in place
+        out = wave_shade.shade_cuda(
+            tables, cfg, bounce_idx, hit,
+            (state.origin, state.direction, state.throughput,
+             state.radiance, state.alive, state.prev_pdf), u,
+            in_place=bounce_idx > 0)
+        return PathState(*out, keys=state.keys)
 
     counts = []
     if replay is None:

@@ -7,10 +7,11 @@ the headers beside it (``csrc/*.cuh``) and the flags, and loaded with
 ctypes. ``LIBRARIES`` names each library's entry point, its argument types
 and the flags it adds. No fast-math flags: the kernels rely on IEEE
 division, on ``inf`` from ``1/0`` in slab tests and on exact ``sqrtf``.
-The ray and sphere kernels are also built with ``-fmad=false``: no a*b+c
-is contracted to an FMA, so their triangle and sphere tests round exactly
-as the plain PyTorch versions' do, and each kernel's instantiations for
-each group size round alike (bitwise equal outputs). ``build_all`` starts
+The ray, sphere and shading kernels are also built with ``-fmad=false``:
+no a*b+c is contracted to an FMA, so their triangle and sphere tests and
+their shading round exactly as the plain PyTorch versions' do, and each
+kernel's instantiations for each group size round alike (bitwise equal
+outputs). ``build_all`` starts
 one nvcc per source at once.
 
 ``takes_kernel`` is the port's one device rule and ``launch`` its one way
@@ -54,6 +55,8 @@ LIBRARIES = {
     "threefry": ("threefry_draw", [_I] + [_P] * 4 + [_I, _U, _I, _I, _P],
                  []),
     "sphere_sweep": ("sphere_sweep", [_P] * 7 + [_I, _I, _F, _P], _EXACT),
+    "wave_shade": ("wave_shade", [_P] * 25 + [_I] * 2 + [_F] * 5 + [_P],
+                   _EXACT),
 }
 
 _loaded: dict = {}

@@ -31,13 +31,13 @@ import torch
 
 from offline_raytracer_tpu_torch.config import RenderConfig
 from offline_raytracer_tpu_torch.integrator import (
-    make_brute_trace_fn, trace_paths)
+    make_brute_trace_fn, trace_paths, wants_grad)
 from offline_raytracer_tpu_torch.ops import mega
 from offline_raytracer_tpu_torch.ops.camera import generate_rays
 from offline_raytracer_tpu_torch.ops.traverse import (
     make_bvh_occlusion_fn, make_bvh_trace_fn, tri_tables)
 from offline_raytracer_tpu_torch.replay import mega_paths_diff, replay_paths
-from offline_raytracer_tpu_torch.scene.types import Scene, float_leaves
+from offline_raytracer_tpu_torch.scene.types import Scene
 from offline_raytracer_tpu_torch.utils import profiling, rng
 
 
@@ -58,13 +58,6 @@ def _mega_active(scene: Scene, cfg: RenderConfig) -> bool:
             and cfg.use_bvh and mega.mega_ok(scene, cfg))
 
 
-def _wants_grad(scene: Scene, ro, rd) -> bool:
-    """Would autograd record a graph through these inputs?"""
-    return torch.is_grad_enabled() and (
-        ro.requires_grad or rd.requires_grad
-        or any(x.requires_grad for _, x in float_leaves(scene)))
-
-
 def _paths_fn(scene: Scene, cfg: RenderConfig,
               tables: mega.MegaTables | None = None):
     """Path-trace callable (ro, rd, keys, collect_stats) -> radiance
@@ -82,7 +75,7 @@ def _paths_fn(scene: Scene, cfg: RenderConfig,
                 tables = mega.prepare_tables(scene, cfg)
 
         def f(ro, rd, keys, collect_stats=False):
-            if collect_stats or not _wants_grad(scene, ro, rd):
+            if collect_stats or not wants_grad(scene, ro, rd):
                 return mega.render_paths_mega(scene, cfg, ro, rd, keys,
                                               collect_stats=collect_stats,
                                               tables=tables)

@@ -4,7 +4,7 @@
 point and the ctypes argument types it is called with. A type that does
 not match the C parameter corrupts the call only on the card, so the table
 is held here to the parameters parsed from each source. The dispatchers of
-the five kernels follow one device rule (``_kernels.takes_kernel``): CUDA
+the six kernels follow one device rule (``_kernels.takes_kernel``): CUDA
 takes the kernel, the CPU the plain version, any other device is refused.
 """
 
@@ -17,7 +17,7 @@ import pytest
 import torch
 
 from offline_raytracer_tpu_torch.ops import (
-    _kernels, intersect, mega, traverse_cull, traverse_packet)
+    _kernels, intersect, mega, traverse_cull, traverse_packet, wave_shade)
 from offline_raytracer_tpu_torch.utils import rng
 
 _C_TYPES = {"int": ctypes.c_int, "unsigned int": ctypes.c_uint,
@@ -67,6 +67,8 @@ def test_dispatchers_refuse_another_device():
                                                        0.0),
         "keys": lambda: rng.pixel_sample_keys(keys[0], ids, ids),
         "planes": lambda: rng.uniform_planes(keys, 0, 1, 8),
+        "wavefront shading": lambda: wave_shade.shade_cuda(
+            None, None, 0, None, (meta,), None),
     }
     for what, call in calls.items():
         with pytest.raises(ValueError, match="meta"):
