@@ -40,7 +40,8 @@ def build_parser():
     src = p.add_mutually_exclusive_group(required=True)
     src.add_argument("--scene", help=".scn scene file")
     src.add_argument("--preset", choices=["analytic", "letter", "bunny",
-                                          "dwarf", "testscene"])
+                                          "dwarf", "testscene",
+                                          "spd_tetra"])
     p.add_argument("--width", type=int, default=None)
     p.add_argument("--height", type=int, default=None)
     p.add_argument("--spp", type=int, default=64)

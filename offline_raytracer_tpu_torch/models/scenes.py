@@ -8,6 +8,8 @@ identical scenes:
   bunny()       bunny.ply + floor + area light
   dwarf()       dwarf.obj, shaped lights
   testscene()   testscene.scn, a full multi-object scene
+  spd_tetra()   Haines's SPD tetra: a Sierpinski pyramid under a sky and
+                one sphere light (needs no data)
 
 The mesh presets read their files from ``data_dir`` (by default ``data/``
 at the repository root). Every preset builds on the card unless
@@ -23,6 +25,7 @@ import numpy as np
 
 from offline_raytracer_tpu_torch.scene.build import SceneBuilder
 from offline_raytracer_tpu_torch.scene.obj import load_obj
+from offline_raytracer_tpu_torch.scene.procedural import spd_tetra as tetra
 from offline_raytracer_tpu_torch.scene.ply import load_ply
 from offline_raytracer_tpu_torch.scene.scn import load_scene
 from offline_raytracer_tpu_torch.scene.types import scene_device
@@ -135,12 +138,50 @@ def testscene(width=None, height=None, data_dir=DATA_DIR, device="cuda",
     return (scene, size) if with_size else scene
 
 
+# SPD's background colour, a constant sky here
+SPD_SKY = (0.078, 0.361, 0.753)
+# the pyramid's material on the three-lobe BSDF
+SPD_MATERIAL = dict(diffuse=(0.8, 0.8, 0.8), specular=(0.2, 0.2, 0.2),
+                    spec_exp=100.0)
+# a white sphere light for SPD's point light; at the pyramid's centroid
+# (0, 0, sqrt(2/3) / 2), 5 away, its irradiance is the sky's by the mean of
+# the sky's channels: emission mean(sky) * (5 / 0.25)**2
+SPD_LIGHT_CENTER = (-0.498003, -2.824313, 4.504009)
+SPD_LIGHT_RADIUS = 0.25
+SPD_LIGHT_EMIT = (158.933333, 158.933333, 158.933333)
+# a pinhole 3/4 view from above, looking from azimuth -50 degrees and
+# elevation 28 degrees at (-0.25, -0.1, 0.5) from 5.5 away, image-up
+# nearest world +Z: the pyramid spans ~75% of the image height
+SPD_CAMERA_P = (2.8715127498075037, -3.8200740339117236, 3.0820935953223993)
+SPD_CAMERA_HEIGHT_RATIO = 0.27
+SPD_CAMERA_QUAT = (0.4839774784167579, 0.17615339619891326,
+                   0.2931684830402131, 0.8054737872487507)
+
+
+def spd_tetra(width=512, height=512, size_factor=8, device="cuda"):
+    """Haines's SPD tetra at ``size_factor`` (8: 262,144 triangles in 2,048
+    leaves) under a constant sky and one sphere light: the wavefront route
+    (the sky keeps it off the segment kernel), its triangle queries and
+    NEE."""
+    device = scene_device(device)
+    b = SceneBuilder()
+    b.add_light_material(SPD_LIGHT_EMIT)
+    b.add_sphere(SPD_LIGHT_CENTER, SPD_LIGHT_RADIUS)
+    b.add_material(**SPD_MATERIAL)
+    b.add_triangles(*tetra(size_factor))
+    b.set_camera(SPD_CAMERA_P, SPD_CAMERA_HEIGHT_RATIO,
+                 np.asarray(SPD_CAMERA_QUAT, np.float32))
+    b.set_sky(SPD_SKY, SPD_SKY)
+    return b.build(width, height, device=device)
+
+
 BY_NAME = {
     "analytic": analytic,
     "letter": letter,
     "bunny": bunny,
     "dwarf": dwarf,
     "testscene": testscene,
+    "spd_tetra": spd_tetra,
 }
 
 

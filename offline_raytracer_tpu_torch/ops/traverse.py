@@ -32,6 +32,13 @@ from the number of rays) and sweep a leaf through its 16 sub-boxes
 
 Traversal is search only: rays and bounds are detached, and the hit that
 shading uses (and differentiates) is recomputed by ``intersect.refine_hit``.
+
+While the recorder of ``utils/profiling.py`` is on, the integrator's
+triangle queries (``make_bvh_trace_fn``, ``make_bvh_occlusion_fn``) are
+spans ``traverse.closest`` and ``traverse.any`` (each the query with its
+coherence sort, scatter and counts) and count ``traverse.rays`` (lanes handed to
+the query), ``traverse.live`` (those live in it: t_far > t_min) and
+``traverse.hits`` (those it answered with a hit), over both kinds.
 """
 
 from __future__ import annotations
@@ -43,6 +50,7 @@ import torch
 from offline_raytracer_tpu_torch.ops import _kernels
 from offline_raytracer_tpu_torch.ops import intersect as I
 from offline_raytracer_tpu_torch.ops.bvh import LEAF
+from offline_raytracer_tpu_torch.utils import profiling
 
 INF = float("inf")
 GROUPS = (1, 2, 4, 8, 16, 32)   # lanes per ray the kernels are built for
@@ -279,6 +287,18 @@ def sorted_tri_hit(tables, tri_hit, cfg, ro, rd, t_far=None,
     return t, slot
 
 
+def count_query(ro, t_far, t_min, slot):
+    """A triangle query's lanes, live lanes and hits to the recorder's
+    counters ``traverse.rays``, ``traverse.live`` and ``traverse.hits``
+    (nothing while it is off; no count waits for the device)."""
+    if profiling.enabled():
+        profiling.count("traverse.rays", ro.shape[0])
+        profiling.count("traverse.live", live_rays(ro, t_far, t_min).sum(
+            dtype=torch.float32))
+        profiling.count("traverse.hits", (slot >= 0).sum(
+            dtype=torch.float32))
+
+
 def make_bvh_trace_fn(scene, cfg, tables: TriTables | None = None):
     """Closest-hit function (ro, rd, alive=None) -> Hit: dense sweeps for
     the analytic primitives, the BVH query for triangles, one
@@ -297,7 +317,9 @@ def make_bvh_trace_fn(scene, cfg, tables: TriTables | None = None):
             best = I.Closest(ro.shape[0], ro.device)
             best.consider_analytic(scene, ro, rd, cfg.t_min, alive)
             tf = None if alive is None else torch.where(alive, INF, 0.0)
-            tt, slot = sorted_tri_hit(tables, tri_hit, cfg, ro, rd, tf)
+            with profiling.span("traverse.closest"):
+                tt, slot = sorted_tri_hit(tables, tri_hit, cfg, ro, rd, tf)
+                count_query(ro, tf, cfg.t_min, slot)
             tri_id = torch.where(
                 slot >= 0, tables.tri_index[torch.clamp(slot, min=0).long()],
                 -1)
@@ -342,8 +364,10 @@ def make_bvh_occlusion_fn(scene, cfg, tables: TriTables | None = None):
         # lanes an analytic primitive already occludes are dead for the
         # triangle query
         tf_tri = torch.where(hit, 0.0, t_far)
-        _, slot = sorted_tri_hit(tables, tri_hit, cfg, ro, rd, tf_tri,
-                                 any_hit=True)
+        with profiling.span("traverse.any"):
+            _, slot = sorted_tri_hit(tables, tri_hit, cfg, ro, rd, tf_tri,
+                                     any_hit=True)
+            count_query(ro, tf_tri, cfg.t_min, slot)
         valid_tri = (slot >= 0) & (
             tables.tri_index[torch.clamp(slot, min=0).long()] >= 0)
         return hit | valid_tri

@@ -158,14 +158,17 @@ def test_load_scene_refuses_other_mesh_formats(tmp_path):
 
 
 def test_presets_by_name_and_size():
-    """The port has the JAX package's presets by the same names; ``preset``
-    builds one at its own default size."""
-    assert list(scenes.BY_NAME) == list(jax_scenes.BY_NAME)
+    """The port has the JAX package's presets by the same names, and then
+    its own procedural ``spd_tetra``; ``preset`` builds one at its own
+    default size."""
+    assert list(scenes.BY_NAME) == list(jax_scenes.BY_NAME) + ["spd_tetra"]
     scene, size = scenes.preset("analytic", device="cpu")
     assert size == (256, 256)
     assert_scenes_equal(jax_scenes.analytic(), scene)
     _, size = scenes.preset("analytic", 32, None, device="cpu")
     assert size == (32, 256)
+    _, size = scenes.preset("spd_tetra", 32, None, device="cpu")
+    assert size == (32, 512)
 
 
 @pytest.mark.parametrize("name", ["letter", "dwarf", "testscene"])

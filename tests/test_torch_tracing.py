@@ -244,3 +244,61 @@ def test_sharded_render_gather_spans_and_live(tmp_path):
             256 * 3 * 4)
         assert o["counters"]["mega.live"] == o["paths"] + float(
             o["alive"][:-1].sum())
+
+
+def _tetra_queries():
+    """The wavefront's triangle queries of a size-factor-3 SPD tetra (the
+    cull query's plain sweep on the CPU) and 300 camera rays, a third of
+    them dead."""
+    from offline_raytracer_tpu_torch.models import scenes
+    from offline_raytracer_tpu_torch.ops import traverse
+    from offline_raytracer_tpu_torch.ops.camera import generate_rays
+    from offline_raytracer_tpu_torch.utils import rng
+
+    cfg = CFG.replace(width=32, height=32, traversal="cull")
+    sc = scenes.spd_tetra(32, 32, size_factor=3, device="cpu")
+    ids = torch.arange(300, dtype=torch.int32) * 3
+    keys = rng.pixel_sample_keys(rng.render_key(0, "cpu"), ids,
+                                 torch.zeros_like(ids))
+    ro, rd = generate_rays(sc.camera, cfg, ids, keys)
+    alive = torch.arange(300) % 3 != 0
+    tf = torch.where(alive, 10.0, 0.0)
+    return (traverse.make_bvh_trace_fn(sc, cfg),
+            traverse.make_bvh_occlusion_fn(sc, cfg), ro.contiguous(),
+            rd.contiguous(), alive, tf)
+
+
+def test_triangle_query_spans_and_counters():
+    """One ``traverse.closest`` span inside the closest-hit function, one
+    ``traverse.any`` inside the occlusion function; ``traverse.rays``
+    counts the lanes of both, ``traverse.live`` the live ones and
+    ``traverse.hits`` the triangle hits."""
+    trace, occluded, ro, rd, alive, tf = _tetra_queries()
+    with profiling.recording():
+        hit = trace(ro, rd, alive)
+    got = profiling.flush()
+    assert [s["name"] for s in got["spans"]] == ["traverse.closest"]
+    c = got["counters"]
+    assert c["traverse.rays"] == 300 and c["traverse.live"] == 200
+    # the scene's one sphere, the light, is out of these rays' way
+    assert c["traverse.hits"] == float((hit.valid & alive).sum()) > 0
+    with profiling.recording():
+        occ = occluded(ro, rd, tf)
+    got = profiling.flush()
+    assert [s["name"] for s in got["spans"]] == ["traverse.any"]
+    assert got["counters"]["traverse.rays"] == 300
+    assert got["counters"]["traverse.live"] == 200
+    assert got["counters"]["traverse.hits"] == float(occ.sum()) > 0
+
+
+def test_triangle_queries_record_nothing_off():
+    """Off, the queries record nothing and answer bitwise as on."""
+    trace, occluded, ro, rd, alive, tf = _tetra_queries()
+    off = (trace(ro, rd, alive), occluded(ro, rd, tf))
+    assert profiling.flush() == {"spans": [], "counters": {}}
+    with profiling.recording():
+        on = (trace(ro, rd, alive), occluded(ro, rd, tf))
+    profiling.flush()
+    for k in ("t", "normal", "mat", "valid"):
+        assert torch.equal(getattr(off[0], k), getattr(on[0], k))
+    assert torch.equal(off[1], on[1])
