@@ -6,9 +6,10 @@
 Phases, each printing its own line; any failure exits non-zero:
 
 1. the card (``nvidia-smi`` name and power limit), torch and CUDA versions;
-2. build the five kernels (``csrc/mega.cu``, ``csrc/traverse_cull.cu``,
-   ``csrc/traverse_packet.cu``, ``csrc/threefry.cu``,
-   ``csrc/sphere_sweep.cu``) from this checkout, one nvcc each, at once;
+2. build the kernels (``KERNELS``: ``csrc/mega.cu``,
+   ``csrc/traverse_cull.cu``, ``csrc/traverse_packet.cu``,
+   ``csrc/threefry.cu``, ``csrc/sphere_sweep.cu``, ``csrc/wave_shade.cu``,
+   ``csrc/light_sample.cu``) from this checkout, one nvcc each, at once;
 3. hold the segment kernel against its plain PyTorch version on the exact
    segment inputs the main path produces: a 16,384-ray probe of the bunny
    stand-in (every 16th ray of the tile order, so it spans the whole image
@@ -17,7 +18,10 @@ Phases, each printing its own line; any failure exits non-zero:
    analytic scene's render against the committed golden image; then the
    four segments of one full-size sample (262,144 rays), each run at one
    lane per ray and at the lanes per ray ``mega.group_size`` picks, which
-   must give bitwise the same outputs, with each one's kernel ms; then the
+   must give bitwise the same outputs, with each one's kernel ms, and the
+   light-sample kernel (``csrc/light_sample.cu``) on each one's uniforms,
+   its planes, the planes the main path handed the segment and the plain
+   twin's bitwise equal, each timed beside its bytes bound; then the
    threefry kernel's draws of that sample (its per-ray keys, the camera's
    uniforms and each segment's planes, 262,144 rays), each bitwise equal
    to the plain int64 version's and timed against it and its bound;
@@ -26,8 +30,9 @@ Phases, each printing its own line; any failure exits non-zero:
    bunny configuration) at 512x512, 32 spp, 8 bounces, DOF off, one launch
    per sample, with the segment tables built once as ``render_image`` does,
    counting rays after the loop as bench.py does, and checking that every
-   segment went through the kernel and every draw through the threefry
-   kernel (one launch per segment and two per sample);
+   segment went through the kernel, every segment's light planes through
+   the light-sample kernel and every draw through the threefry kernel (one
+   launch per segment and two per sample);
 5. the wavefront route's triangle queries: the inputs of the 16 queries
    of one full-size wavefront sample (262,144 rays, 8 bounces, NEE on:
    per bounce a closest-hit and a shadow any-hit query) are captured, and
@@ -153,7 +158,7 @@ CLI_EVERY = 4             # their checkpoint chunk
 PAR_SPP = 4               # samples per pixel of the sharded renders
 RING_SPP = 1              # and of the ring's render
 KERNELS = ("mega", "traverse_cull", "traverse_packet", "threefry",
-           "sphere_sweep", "wave_shade")
+           "sphere_sweep", "wave_shade", "light_sample")
 # the card's peaks (NVIDIA H100 SXM data sheet): device memory bytes/s and
 # float32 FLOP/s outside the tensor cores
 PEAK_BYTES = 3.35e12
@@ -187,6 +192,9 @@ SHADE_LIVE_BYTES = 216
 SHADE_DEAD_BYTES = 1
 SHADE_DEAD_COPY_BYTES = 90
 SHADE_BOUNCES = (0, SWEEP_BOUNCE)   # the bounces phase 13 takes
+# bytes the light-sample kernel moves a lane and bounce: its 4 uniforms
+# read and its 10 planes written (the light table stays in the cache)
+LIGHT_LANE_BYTES = 56
 
 
 def log(msg):
@@ -383,6 +391,32 @@ def compare_segment(name, inputs):
         f"plain_ms={p_ms:.4f} bound_ms={b_ms:.4f} ({b_by})")
     return {"err": err, "ms": k_ms, "plain_ms": p_ms, "tri_hits": tri_hits,
             "bound_ms": b_ms, "bound_by": b_by, "group": g}
+
+
+def compare_light_planes(scene, inputs):
+    """The light-sample kernel against its plain twin on one captured
+    segment's uniforms: both, and the planes the main path handed the
+    segment, bitwise equal; each timed. Returns (kernel ms, plain ms,
+    bound ms)."""
+    import torch
+    from offline_raytracer_tpu_torch.ops import light_sample
+
+    _, u, ls, _, seg = inputs
+    nf = seg.n_fused
+    args = (u, nf, scene.lights, scene.materials.emit)
+    k = light_sample.sample_planes_cuda(*args)
+    p = light_sample.sample_planes_plain(*args)
+    torch.cuda.synchronize()
+    for name, got in (("kernel", k), ("main path's", ls)):
+        differ = int((got.view(torch.int32) != p.view(torch.int32)).sum())
+        if got.shape != p.shape or differ:
+            fail(f"light sample b={seg.b_start}: the {name} planes differ "
+                 f"bitwise from the plain twin's in {differ} of "
+                 f"{p.numel()} values")
+    k_ms = time_ms(lambda: light_sample.sample_planes_cuda(*args), 10)
+    p_ms = time_ms(lambda: light_sample.sample_planes_plain(*args), 3)
+    b_ms = u.shape[1] * nf * LIGHT_LANE_BYTES / PEAK_BYTES * 1e3
+    return k_ms, p_ms, b_ms
 
 
 def capture_queries(scene, cfg, pixel_ids):
@@ -1498,7 +1532,7 @@ def main() -> int:
     import numpy as np
     from offline_raytracer_tpu_torch import RenderConfig
     from offline_raytracer_tpu_torch.models.scenes import analytic
-    from offline_raytracer_tpu_torch.ops import _kernels, mega
+    from offline_raytracer_tpu_torch.ops import _kernels, light_sample, mega
     from offline_raytracer_tpu_torch.render import (
         render_block_stats, render_image, tile_pixel_ids)
     from offline_raytracer_tpu_torch.scene.build import SceneBuilder
@@ -1555,7 +1589,7 @@ def main() -> int:
     assert_close(golden.reshape(-1, 3), img.reshape(-1, 3))
     log(f"  analytic 24x24 16 spp vs tests/golden: max abs diff "
         f"{np.abs(golden - img).max():.3e}")
-    segments = []
+    segments, lights = [], []
     for s in capture_segments(scene, cfg, order):
         state, seg = s[0], s[4]
         g = mega.group_size(seg, state.shape[1])
@@ -1569,9 +1603,17 @@ def main() -> int:
         segments.append({"b": seg.b_start, "nf": seg.n_fused, "live": live,
                          "group": g, "ms": ms[g], "ms_g1": ms[1],
                          "bound_ms": b_ms, "bound_by": b_by})
+        if seg.do_nee:
+            lights.append(compare_light_planes(scene, s))
+            log(f"  its light-sample planes: kernel, main path and plain "
+                f"twin bitwise equal; kernel {lights[-1][0]:.4f} ms, plain "
+                f"{lights[-1][1]:.4f} ms, bound {lights[-1][2]:.4f} ms "
+                f"(bytes) [{card}]")
     log(f"  full-size sample: segment kernels "
         f"{sum(x['ms'] for x in segments):.4f} ms at the rule's G, "
         f"{sum(x['ms_g1'] for x in segments):.4f} ms at G=1 [{card}]")
+    if not lights:
+        fail("the bunny stand-in's sample ran no NEE: no light planes")
     draws = threefry_phase(cfg, order, card)
 
     # ---- phase 4: the slice through the kernel
@@ -1579,6 +1621,7 @@ def main() -> int:
     nee = cfg.enable_nee and scene.n_lights > 0
     torch.cuda.synchronize()
     mega.KERNEL_LAUNCHES = 0
+    light_sample.KERNEL_LAUNCHES = 0
     rng.KERNEL_LAUNCHES = 0
     t0 = time.time()
     tables = mega.prepare_tables(scene, cfg)
@@ -1601,6 +1644,10 @@ def main() -> int:
     launches = mega.KERNEL_LAUNCHES
     if launches != per_sample * SPP:
         fail(f"kernel launches {launches}, want {per_sample * SPP}")
+    light_launches = light_sample.KERNEL_LAUNCHES
+    if light_launches != (per_sample * SPP if nee else 0):
+        fail(f"light-sample launches {light_launches}, want "
+             f"{per_sample * SPP if nee else 0}")
     draws["launches"] = rng.KERNEL_LAUNCHES
     if draws["launches"] != (per_sample + 2) * SPP:
         fail(f"threefry launches {draws['launches']}, want "
@@ -1610,8 +1657,9 @@ def main() -> int:
     mrays = rays / dt / 1e6
     log(f"phase 4 slice: bunny stand-in {W}x{H} {SPP} spp {BOUNCES} bounces "
         f"in {dt:.3f} s, {rays:.0f} rays, {mrays:.3f} Mrays/s, "
-        f"{launches} segment and {draws['launches']} threefry kernel "
-        f"launches, image mean {img.mean():.5f} [{card}]")
+        f"{launches} segment, {light_launches} light-sample and "
+        f"{draws['launches']} threefry kernel launches, image mean "
+        f"{img.mean():.5f} [{card}]")
 
     wave = wavefront_phases(scene, cfg, order, card)
     grad_launches = gradient_phases(scene, cfg, order, card)
@@ -1632,7 +1680,14 @@ def main() -> int:
         "bound_ms": results[0]["bound_ms"],
         "bound_by": results[0]["bound_by"], "library_ms": None,
         "group": {x["b"]: x["group"] for x in segments},
-        "segments": segments}] + wave + [draws, sweep, shade]}
+        "segments": segments}] + wave + [draws, sweep, shade, {
+        "name": "light_sample", "route": "cuda",
+        "source": "offline_raytracer_tpu_torch/csrc/light_sample.cu",
+        "replaces": None, "max_abs_err": 0.0, "launches": light_launches,
+        "ms": sum(x[0] for x in lights),
+        "plain_ms": sum(x[1] for x in lights),
+        "bound_ms": sum(x[2] for x in lights), "bound_by": "bytes",
+        "library_ms": None}]}
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -7,9 +7,10 @@ the headers beside it (``csrc/*.cuh``) and the flags, and loaded with
 ctypes. ``LIBRARIES`` names each library's entry point, its argument types
 and the flags it adds. No fast-math flags: the kernels rely on IEEE
 division, on ``inf`` from ``1/0`` in slab tests and on exact ``sqrtf``.
-The ray, sphere and shading kernels are also built with ``-fmad=false``:
-no a*b+c is contracted to an FMA, so their triangle and sphere tests and
-their shading round exactly as the plain PyTorch versions' do, and each
+The ray, sphere, shading and light-sample kernels are also built with
+``-fmad=false``: no a*b+c is contracted to an FMA, so their triangle and
+sphere tests, their shading and their light samples round exactly as the
+plain PyTorch versions' do, and each
 kernel's instantiations for each group size round alike (bitwise equal
 outputs). ``build_all`` starts
 one nvcc per source at once.
@@ -57,6 +58,7 @@ LIBRARIES = {
     "sphere_sweep": ("sphere_sweep", [_P] * 7 + [_I, _I, _F, _P], _EXACT),
     "wave_shade": ("wave_shade", [_P] * 25 + [_I] * 2 + [_F] * 5 + [_P],
                    _EXACT),
+    "light_sample": ("light_sample", [_P] * 17 + [_I] * 4 + [_P], _EXACT),
 }
 
 _loaded: dict = {}

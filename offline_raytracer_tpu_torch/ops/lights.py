@@ -6,7 +6,10 @@ boxes, registered as 12-triangle meshes) by an area-proportional triangle
 pick from one globally monotone CDF. The light is picked uniformly.
 ``build_area_lights`` is numpy host code; ``sample_lights`` and the pdf
 helpers (``light_pdf_area``, ``solid_angle_pdf``, ``mis_balance``) run in
-torch on the device of their inputs, in the JAX functions' operation order.
+torch on the device of their inputs, in the JAX functions' operation order
+but for the cylinder's rotation, which sums in a fixed order of its own.
+``sample_lights`` is the plain twin of ``csrc/light_sample.cu``
+(``ops/light_sample.py``), which the segment route takes on the card.
 """
 
 from __future__ import annotations
@@ -60,6 +63,15 @@ def _norm(x):
     return torch.sqrt(torch.sum(x * x, dim=-1))
 
 
+def _rot_t(rot, v):
+    """rot^T v per row, (R, 3, 3) and (R, 3) -> (R, 3): the products
+    rounded, then summed in a fixed order, ((j=0 + j=1) + j=2), which
+    csrc/light_sample.cuh repeats (an einsum is a batched gemv on the card,
+    whose order no kernel can promise to copy)."""
+    x = rot * v[:, :, None]
+    return x[:, 0] + x[:, 1] + x[:, 2]
+
+
 def sample_lights(u, lights: AreaLights, emit_table) -> LightSample:
     """(light, point) samples from uniforms ``u`` (R, 4): [pick, a, b, c]."""
     L = lights.count
@@ -98,8 +110,8 @@ def sample_lights(u, lights: AreaLights, emit_table) -> LightSample:
         torch.stack([cphi, sphi, zeros], -1),
         torch.stack([zeros, zeros,
                      torch.where(pick_top, 1.0, -1.0).to(cphi.dtype)], -1))
-    p_cyl = torch.einsum("rji,rj->ri", rot, p_local) + p0
-    n_cyl = torch.einsum("rji,rj->ri", rot, n_local)
+    p_cyl = _rot_t(rot, p_local) + p0
+    n_cyl = _rot_t(rot, n_local)
 
     # mesh: the light is chosen; the triangle comes from the globally
     # monotone CDF (light k's slice spans (k, k+1])

@@ -19,9 +19,9 @@ Two implementations share one contract:
 for CPU tensors (``ops/_kernels.takes_kernel``); there is no fallback from
 one to the other.
 ``render_paths_mega`` is the host loop around the segments: padding and
-parking, the segment plan, the per-bounce uniform and light-sample planes,
-the coherence sort between early bounces with its incremental inverse
-permutation, and the alive counts.
+parking, the segment plan, the per-bounce uniform and light-sample planes
+(``ops/light_sample.py``), the coherence sort between early bounces with
+its incremental inverse permutation, and the alive counts.
 
 Rules both implementations share (and the JAX kernel follows up to ties):
 the analytic order is spheres, boxes, cylinders with strict ``<``; the
@@ -38,9 +38,8 @@ import dataclasses
 import numpy as np
 import torch
 
-from offline_raytracer_tpu_torch.ops import _kernels
+from offline_raytracer_tpu_torch.ops import _kernels, light_sample
 from offline_raytracer_tpu_torch.ops.bvh import SUB
-from offline_raytracer_tpu_torch.ops.lights import sample_lights
 from offline_raytracer_tpu_torch.ops.traverse import leaf_major, tri_tables
 from offline_raytracer_tpu_torch.utils import profiling, rng
 
@@ -971,13 +970,6 @@ def render_paths_mega(scene, cfg, ro, rd, keys, collect_stats=False,
             pad, 3)])
     do_nee = bool(cfg.enable_nee and meta.nl > 0)
 
-    def light_sample_planes(u8):
-        """(10, Rp) NEE planes: point, normal, emit, area pdf."""
-        if not do_nee:
-            return torch.zeros((10, Rp), **f32)
-        s = sample_lights(u8[0:4].T, scene.lights, scene.materials.emit)
-        return torch.cat([s.p.T, s.normal.T, s.emit.T, s.pdf_area[None]], 0)
-
     alive0 = torch.cat([torch.ones((R,), **f32), torch.zeros((pad,), **f32)])
     state = torch.cat([
         ro.T, rd.T, torch.ones((3, Rp), **f32),
@@ -998,8 +990,11 @@ def render_paths_mega(scene, cfg, ro, rd, keys, collect_stats=False,
         with profiling.span("mega.draws"):
             u_all = rng.uniform_planes(keys_cur, b, nf, 8)
         with profiling.span("mega.lights"):
-            ls_all = torch.cat([light_sample_planes(u_all[8 * i:8 * i + 8])
-                                for i in range(nf)], 0).contiguous()
+            if do_nee:
+                ls_all = light_sample.sample_planes(
+                    u_all, nf, scene.lights, scene.materials.emit)
+            else:
+                ls_all = torch.zeros((10 * nf, Rp), **f32)
         with profiling.span("mega.segment"):
             state, rad = mega_segment(state, u_all, ls_all, tables,
                                       Segment.of(cfg, meta, b, nf))

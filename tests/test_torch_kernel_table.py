@@ -4,7 +4,7 @@
 point and the ctypes argument types it is called with. A type that does
 not match the C parameter corrupts the call only on the card, so the table
 is held here to the parameters parsed from each source. The dispatchers of
-the six kernels follow one device rule (``_kernels.takes_kernel``): CUDA
+the seven kernels follow one device rule (``_kernels.takes_kernel``): CUDA
 takes the kernel, the CPU the plain version, any other device is refused.
 """
 
@@ -17,7 +17,8 @@ import pytest
 import torch
 
 from offline_raytracer_tpu_torch.ops import (
-    _kernels, intersect, mega, traverse_cull, traverse_packet, wave_shade)
+    _kernels, intersect, light_sample, mega, traverse_cull, traverse_packet,
+    wave_shade)
 from offline_raytracer_tpu_torch.utils import rng
 
 _C_TYPES = {"int": ctypes.c_int, "unsigned int": ctypes.c_uint,
@@ -53,6 +54,22 @@ def test_library_table_matches_the_sources():
                        for f in _kernels.NVCC_FLAGS + flags), name
 
 
+def test_light_sample_row_takes_the_table_in_order():
+    """``csrc/light_sample.cu``'s row: the uniforms, the wrapper's table
+    arguments by name in ``light_sample.TABLE``'s order and the emission,
+    the planes out, four ints, the stream."""
+    entry, argtypes, flags = _kernels.LIBRARIES["light_sample"]
+    with open(os.path.join(_kernels.SRC_DIR, "light_sample.cu")) as f:
+        src = f.read()
+    assert argtypes == _c_params(src, entry)
+    assert "-fmad=false" in flags
+    params = re.findall(r'extern\s+"C"\s+int\s+light_sample\s*\(([^)]*)\)',
+                        src)[0].split(",")
+    names = [p.split()[-1].lstrip("*") for p in params]
+    assert names == (["u"] + [name for name, *_ in light_sample.TABLE]
+                     + ["emit", "out", "Rp", "nf", "L", "T", "stream"])
+
+
 def test_dispatchers_refuse_another_device():
     meta = torch.zeros((128, 3), device="meta")
     ids = torch.zeros((128,), dtype=torch.int32, device="meta")
@@ -69,6 +86,8 @@ def test_dispatchers_refuse_another_device():
         "planes": lambda: rng.uniform_planes(keys, 0, 1, 8),
         "wavefront shading": lambda: wave_shade.shade_cuda(
             None, None, 0, None, (meta,), None),
+        "light sample": lambda: light_sample.sample_planes(
+            torch.zeros((8, 128), device="meta"), 1, None, None),
     }
     for what, call in calls.items():
         with pytest.raises(ValueError, match="meta"):

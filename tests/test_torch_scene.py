@@ -18,14 +18,15 @@ from offline_raytracer_tpu_torch.ops.lights import sample_lights
 from offline_raytracer_tpu_torch.scene.build import SceneBuilder
 from offline_raytracer_tpu_torch.utils import rng
 from torch_port_cases import (
-    analytic_recipe, assert_scenes_equal, jax_scene_arrays, mesh_recipe,
-    port_leaf, shaped_recipe)
+    analytic_recipe, assert_scenes_equal, jax_scene_arrays,
+    light_kinds_recipe, mesh_recipe, port_leaf, shaped_recipe)
 
 torch.set_num_threads(2)
 
 RECIPES = {"analytic": analytic_recipe, "shaped": shaped_recipe,
            "mesh": mesh_recipe,
-           "lights": lambda B: shaped_recipe(B, sphere_light=True)}
+           "lights": lambda B: shaped_recipe(B, sphere_light=True),
+           "tilted": light_kinds_recipe}
 
 
 @pytest.fixture(scope="module")
@@ -84,11 +85,18 @@ def test_generate_rays_matches_jax(scenes, dof, jitter, disk):
     np.testing.assert_allclose(td.numpy(), np.asarray(jd), atol=1e-6)
 
 
-def test_sample_lights_matches_jax(scenes):
-    """Sphere, cylinder and mesh (emissive box) lights."""
-    js, ts = scenes["lights"]
+@pytest.mark.parametrize("recipe,seed,n", [("lights", 2, 4000),
+                                            ("tilted", 5, 6000)])
+def test_sample_lights_matches_jax(scenes, recipe, seed, n):
+    """Sphere, cylinder and mesh (emissive box) lights; in "tilted" the
+    cylinder's rotation is no permutation, so the port's rotation, summed
+    in its fixed order, is held to the JAX einsum's rounding."""
+    js, ts = scenes[recipe]
     assert sorted(ts.lights.kind.tolist()) == [0, 1, 2]
-    u = np.random.RandomState(2).uniform(0, 1, (4000, 4)).astype(np.float32)
+    if recipe == "tilted":
+        assert ts.lights.kind.tolist() == [0, 1, 2]
+        assert int((ts.lights.rot[1].abs() > 1e-3).sum()) > 3
+    u = np.random.RandomState(seed).uniform(0, 1, (n, 4)).astype(np.float32)
     want = jax_lights(jnp.asarray(u), js.lights, js.materials.emit)
     got = sample_lights(torch.from_numpy(u), ts.lights, ts.materials.emit)
     for field in ("p", "normal", "emit", "pdf_area"):

@@ -75,9 +75,11 @@ def _rtiow_cfg(c, **kw):
 def test_no_sky_renders_bitwise_as_before():
     """Every route of a sky-less scene gives the outputs of the commit
     before the sky and issues the ATen operations the golden file records
-    (one CPU thread): the segment route and the replay as many as then,
-    the forward wavefront routes 3 fewer a bounce since its material
-    parameters are gathered by the hit's material, as the replay's are."""
+    (one CPU thread): the forward wavefront routes 3 fewer a bounce since
+    its material parameters are gathered by the hit's material, as the
+    replay's are; every route 8 fewer a light sample since the cylinder's
+    rotation is elementwise, and the segment route 2 fewer a segment since
+    its light planes are one concatenation."""
     got = torch_sky_cases.flat(torch_sky_cases.cases())
     want = np.load(GOLDEN)
     assert sorted(got) == sorted(want.files)

@@ -168,6 +168,28 @@ def shaped_recipe(B, sphere_light=False):
     return b
 
 
+def light_kinds_recipe(B, kinds="scm"):
+    """A floor and one light of each kind named in ``kinds``, in that
+    order: "s" a sphere, "c" a tilted cylinder (its rotation is no
+    permutation), "m" a mesh (an emissive box: 12 triangles); each light
+    its own emission."""
+    b = B()
+    b.set_camera((0.0, -4.0, 1.5), 0.5, (0.0, 0.0, 0.0, 1.0))
+    b.add_material(diffuse=(0.6, 0.6, 0.6))
+    b.add_box_minmax((-5, -5, -0.2), (5, 5, 0.0))
+    for k in kinds:
+        if k == "s":
+            b.add_light_material((9.0, 9.0, 7.0))
+            b.add_sphere((-1.5, 1.0, 2.0), 0.3)
+        elif k == "c":
+            b.add_light_material((2.0, 3.0, 4.0))
+            b.add_cylinder((0.6, -0.4, 0.5), (0.5, 0.7, 1.3), 0.2)
+        else:
+            b.add_light_material((6.0, 5.0, 4.0))
+            b.add_box_minmax((-0.5, -0.3, 2.4), (0.7, 0.5, 2.6))
+    return b
+
+
 def mesh_recipe(B, n_tris=576):
     """The bunny configuration (materials, floor, light, camera) around a
     procedural mesh of ``n_tris`` triangles, plus a glass sphere."""
